@@ -1,22 +1,38 @@
-"""Batched MCTS: shared pieces and the ``run_mcts`` dispatch (port of
-``alphafive_tpu/mcts/search.py``).
+"""Batched MCTS: the full-width search and the ``run_mcts`` dispatch (port
+of ``alphafive_tpu/mcts/search.py``).
 
-The self-play path runs the branch-capped search
-(``mcts/search_capped.py``). The full-width search (``branch_cap=None``)
-and the packed-tree search behind ``select_impl="pallas"`` are not ported
-yet (ROADMAP Queue 1 item 4, Queue 1 item 17 with Queue 2 item 2);
-``run_mcts`` raises for them. Randomness comes from ``torch.Generator``s;
-a caller that needs the JAX package's exact noise passes it in as a
-tensor (``run_mcts_capped(noise=...)``).
+``run_mcts`` dispatches as the JAX function does: with ``branch_cap`` set
+to the branch-capped search (``mcts/search_capped.py``, the self-play
+path); with ``select_impl="pallas"`` to the packed-tree search whose
+descent is the select kernel (``mcts/search_packed.py``); otherwise to the
+full-width search below, over action-indexed edge arrays ``[E, NN, A]``.
+Semantics are the JAX package's, step for step; the port differs only in
+mechanics:
+
+* The tree is updated in place (JAX rebuilds immutable arrays); in "path"
+  virtual mode the virtual visits go straight into the visit array, which
+  JAX swaps in after the select phase.
+* The per-env descent (a vmapped ``while_loop`` in JAX) is one loop over
+  all envs with one host sync per step (``stopped.all()``).
+* Visit counts (u16 in JAX), child links (i16) and the int16 fixed-point
+  value sums are int32 tensors holding the same values: torch's small
+  integer types support too few ops, and scatter-adds into int32 work on
+  every device. The fixed-point budget check (``nn <= 511``) is JAX's, so
+  the sums stay within int16's range as there.
+
+Randomness comes from ``torch.Generator``s; a caller that needs the JAX
+package's exact noise passes it in as a tensor (``noise=``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
+from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
 
 # evaluator: (board int8[E,A], to_play int8[E], last int32[E])
@@ -28,6 +44,22 @@ class SearchResult(NamedTuple):
     visits: torch.Tensor      # f32[E, A] root visit counts
     root_value: torch.Tensor  # f32[E] W(root)/N(root)
     priors: torch.Tensor      # f32[E, A] root priors (after noise)
+
+
+@dataclasses.dataclass
+class Tree:
+    # edge stats [E, NN, A]
+    n: torch.Tensor       # int32 visit counts
+    w: torch.Tensor       # f32 value sums, or int32 fixed-point (1/64)
+    p: torch.Tensor       # priors (prior_dtype), illegal = -1
+    child: torch.Tensor   # int32 child node index, -1 if unexpanded
+    # node stats [E, NN] / [E, NN, A]
+    node_done: torch.Tensor
+    node_winner: torch.Tensor
+    node_to_play: torch.Tensor
+    node_last: torch.Tensor
+    node_count: torch.Tensor
+    node_board: torch.Tensor
 
 
 def masked_softmax(logits: torch.Tensor, legal: torch.Tensor) -> torch.Tensor:
@@ -50,12 +82,268 @@ def dirichlet_noise(generator: torch.Generator, alpha: float,
     return g / g.sum(dim=-1, keepdim=True).clamp(min=1e-30)
 
 
+def _tree_init(env_cfg: EnvConfig, num_envs: int, num_nodes: int,
+               prior_dtype: torch.dtype, fixed_w: bool, device) -> Tree:
+    e, nn, a = num_envs, num_nodes, env_cfg.num_actions
+    if nn > 32767:  # JAX's int16 child pointers
+        raise ValueError("the tree is capped at 32767 nodes")
+    z = lambda shape, dt, fill=0: torch.full(shape, fill, dtype=dt,
+                                             device=device)
+    return Tree(
+        n=z((e, nn, a), torch.int32),
+        w=z((e, nn, a), torch.int32 if fixed_w else torch.float32),
+        p=z((e, nn, a), prior_dtype),
+        child=z((e, nn, a), torch.int32, -1),
+        node_done=z((e, nn), torch.bool),
+        node_winner=z((e, nn), torch.int8),
+        node_to_play=z((e, nn), torch.int8, 1),
+        node_last=z((e, nn), torch.int32, -1),
+        node_count=z((e, nn), torch.int32),
+        node_board=z((e, nn, a), torch.int8),
+    )
+
+
 def _puct_scores_n(nf, w_row, p_row, legal, c_puct: float):
     """PUCT with float visit counts (virtual visits already folded in)."""
     q = torch.where(nf > 0, w_row / nf.clamp(min=1.0), 0.0)
     ns = 1.0 + nf.sum(dim=-1, keepdim=True)
     u = c_puct * p_row.float() * torch.sqrt(ns) / (1.0 + nf)
     return torch.where(legal, q + u, float("-inf"))
+
+
+def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
+                c_puct: float, depth_limit: int, w_inv_scale: float = 1.0,
+                forced_k: float = 0.0):
+    """PUCT descent of every env from its root (JAX's ``_select_one``,
+    there vmapped over envs). `vroot` [E, A] holds the pass's virtual
+    root visits. A descent stops at the first missing child (to expand),
+    at a terminal node or at the depth cap (the latter two: action -1, a
+    leaf revisit). The path records every traversed edge, including the
+    stopping edge when expanding; unused slots stay (0, 0).
+
+    Returns (leaf_parent [E], action [E], depth [E], path_nodes [E, D],
+    path_actions [E, D]), all int64."""
+    d = depth_limit
+    e = tree_done.shape[0]
+    dev = tree_done.device
+    earange = torch.arange(e, device=dev)
+    cur = torch.zeros(e, dtype=torch.long, device=dev)
+    act = torch.full((e,), -1, dtype=torch.long, device=dev)
+    depth = torch.zeros(e, dtype=torch.long, device=dev)
+    stopped = torch.zeros(e, dtype=torch.bool, device=dev)
+    pn = torch.zeros((e, d), dtype=torch.long, device=dev)
+    pa = torch.zeros((e, d), dtype=torch.long, device=dev)
+    while not bool(stopped.all()):
+        live = ~stopped
+        revisit = tree_done[earange, cur] | (depth >= d)
+        p_signed = tree_p[earange, cur].float()
+        legal = p_signed >= 0
+        w_row = tree_w[earange, cur].float() * w_inv_scale
+        p_row = p_signed.clamp(min=0.0)
+        nf_real = tree_n[earange, cur].float()
+        nf = torch.where((cur == 0)[:, None], nf_real + vroot, nf_real)
+        score = _puct_scores_n(nf, w_row, p_row, legal, c_puct)
+        # forced-playout gate on REAL visits (see the JAX docstring)
+        forced = (legal & (depth == 0)[:, None] & (nf_real > 0)
+                  & (nf_real * nf_real
+                     < forced_k * p_row * nf_real.sum(dim=-1, keepdim=True)))
+        score = torch.where(forced, float("inf"), score)
+        a = score.argmax(dim=-1)
+        ch = tree_child[earange, cur, a].long()
+        stop = revisit | (ch < 0)
+        rec = live & ~revisit
+        slot = depth.clamp(max=d - 1)
+        pn[earange, slot] = torch.where(rec, cur, pn[earange, slot])
+        pa[earange, slot] = torch.where(rec, a, pa[earange, slot])
+        depth = depth + rec.long()
+        act = torch.where(live, torch.where(revisit, -1, a), act)
+        cur = torch.where(live & ~stop, ch, cur)
+        stopped = stopped | stop
+    return cur, act, depth, pn, pa
+
+
+def _gather_env(tree, idx: torch.Tensor) -> EnvState:
+    """EnvState of node idx[E] (or nodes idx[E, L], leading [E, L]) in
+    each env's tree (any tree with the ``node_*`` fields)."""
+    idx = idx.long()
+    e = torch.arange(idx.shape[0], device=idx.device).reshape(
+        (-1,) + (1,) * (idx.dim() - 1))
+    return EnvState(
+        board=tree.node_board[e, idx],
+        to_play=tree.node_to_play[e, idx],
+        last_move=tree.node_last[e, idx],
+        move_count=tree.node_count[e, idx],
+        done=tree.node_done[e, idx],
+        winner=tree.node_winner[e, idx],
+    )
+
+
+def _write_nodes(tree, ids, st: EnvState) -> None:
+    """Store `st` as node(s) `ids` (an int, or a slice over [E, L] lanes)
+    of every env's tree, in place."""
+    tree.node_board[:, ids] = st.board
+    tree.node_to_play[:, ids] = st.to_play
+    tree.node_last[:, ids] = st.last_move
+    tree.node_count[:, ids] = st.move_count
+    tree.node_done[:, ids] = st.done
+    tree.node_winner[:, ids] = st.winner
+
+
+def _select_where(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+    """Field-wise ``where(mask, a, b)``; `mask` covers the leading dims."""
+    def pick(x, y):
+        m = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
+        return torch.where(m, x, y)
+    return EnvState(**{f.name: pick(getattr(a, f.name), getattr(b, f.name))
+                       for f in dataclasses.fields(EnvState)})
+
+
+def _run_pass(env_cfg, evaluate, tree: Tree, *, base: int, lb: int, d: int,
+              path_virtual: bool, fixed_w: bool, w_scale: float,
+              prior_dtype, c_puct: float, forced_k: float) -> None:
+    """One leaf-parallel pass: `lb` descents per env with virtual visits
+    between them, one batched env.step and net forward over the E·lb
+    leaves, dedup expansion at node ids [base, base + lb), one backup
+    scatter. Updates `tree` in place."""
+    e, _, a = tree.n.shape
+    dev = tree.n.device
+    earange = torch.arange(e, device=dev)
+    dn = torch.arange(d, device=dev)
+    vroot = torch.zeros((e, a), dtype=torch.float32, device=dev)
+    lanes = []
+    for _ in range(lb):
+        lp, act, depth, pn, pa = _select_one(
+            tree.n, tree.w, tree.p, tree.child, tree.node_done, vroot,
+            c_puct, d, 1.0 / w_scale, forced_k)
+        if path_virtual:  # +1 on every traversed edge, for good
+            tree.n.index_put_((earange[:, None].expand_as(pn), pn, pa),
+                              (dn[None, :] < depth[:, None]).int(),
+                              accumulate=True)
+        else:             # +1 on the first edge, for this pass only
+            vroot[earange, pa[:, 0]] += (depth > 0).float()
+        lanes.append((lp, act, depth, pn, pa))
+    lps, acts, deps, pns, pas = (torch.stack(x, dim=1) for x in zip(*lanes))
+
+    # revisit lanes (action -1): terminal node or live node at the depth
+    # cap — no expansion, back up the leaf's own value
+    is_revisit = acts < 0                                      # [E, lb]
+    safe_act = acts.clamp(min=0)
+    parent = _gather_env(tree, lps)
+    flat = lambda x: x.reshape((e * lb,) + x.shape[2:])
+    unflat = lambda x: x.reshape((e, lb) + x.shape[1:])
+    stepped = vector.step(env_cfg, parent.map(flat),
+                          flat(safe_act)).map(unflat)
+    leaf = _select_where(is_revisit, parent, stepped)
+
+    # duplicate expansions (two lanes stopping at the same unexpanded edge)
+    # all link to the first lane's node id; child starts at -1 and no
+    # selected edge has a child yet, so adding link + 1 writes the link
+    edge_key = lps * a + safe_act
+    expanding = ~is_revisit
+    same = ((edge_key[:, :, None] == edge_key[:, None, :])
+            & expanding[:, :, None] & expanding[:, None, :])
+    jj = torch.arange(lb, device=dev)
+    first_lane = torch.where(same, jj[None, None, :], lb).min(dim=-1).values
+    is_first = expanding & (first_lane == jj[None, :])
+    link_add = torch.where(is_first, base + first_lane + 1, 0).int()
+    new = slice(base, base + lb)
+    _write_nodes(tree, new, stepped)
+    tree.child.index_put_((earange[:, None].expand_as(lps), lps, safe_act),
+                          link_add, accumulate=True)
+
+    # ONE batched evaluation per pass
+    logits_f, v_f = evaluate(flat(leaf.board), flat(leaf.to_play),
+                             flat(leaf.last_move))
+    logits, v = unflat(logits_f), unflat(v_f)
+    leaf_value = torch.where(leaf.done,
+                             (leaf.winner * leaf.to_play).float(), v.float())
+    child_legal = stepped.board == 0
+    child_p = masked_softmax(logits, child_legal)
+    tree.p[:, new] = torch.where(child_legal, child_p, -1.0).to(prior_dtype)
+
+    # backup: edge j of a path of length L gets leaf_value * (-1)^(L - j)
+    # and one visit; pad slots add 0 at (0, 0)
+    on_path = dn[None, None, :] < deps[:, :, None]             # [E, lb, D]
+    sign = torch.where((deps[:, :, None] - dn) % 2 == 0, 1.0, -1.0)
+    vals = torch.where(on_path, sign * leaf_value[:, :, None], 0.0)
+    if fixed_w:
+        vals = torch.round(vals * w_scale).int()
+    idx = (earange[:, None, None].expand_as(pns), pns, pas)
+    tree.w.index_put_(idx, vals, accumulate=True)
+    if not path_virtual:  # in path mode the visits landed at select time
+        tree.n.index_put_(idx, on_path.int(), accumulate=True)
+
+
+@torch.no_grad()
+def run_mcts(env_cfg: EnvConfig, mcts_cfg: MCTSConfig, evaluate: Evaluator,
+             state: EnvState, generator: Optional[torch.Generator] = None,
+             *, num_simulations: Optional[int] = None,
+             add_noise: bool = True,
+             noise: Optional[torch.Tensor] = None) -> SearchResult:
+    """Search every env's current position. Roots should not be terminal
+    (done envs are searched harmlessly but their visits are meaningless).
+    `noise` [E, A] replaces the Dirichlet draw from `generator`."""
+    if mcts_cfg.branch_cap is not None:
+        if mcts_cfg.select_impl == "pallas":
+            raise ValueError("branch_cap and select_impl='pallas' are "
+                             "mutually exclusive")
+        from alphafive_tpu_torch.mcts.search_capped import run_mcts_capped
+        return run_mcts_capped(env_cfg, mcts_cfg, evaluate, state, generator,
+                               num_simulations=num_simulations,
+                               add_noise=add_noise, noise=noise)
+    if mcts_cfg.select_impl == "pallas":
+        if mcts_cfg.leaf_batch > 1:
+            raise ValueError("select_impl='pallas' implements sequential "
+                             "descent only; leaf_batch > 1 needs 'xla'")
+        from alphafive_tpu_torch.mcts.search_packed import run_mcts_packed
+        return run_mcts_packed(env_cfg, mcts_cfg, evaluate, state, generator,
+                               num_simulations=num_simulations,
+                               add_noise=add_noise, noise=noise)
+    sims = int(num_simulations or mcts_cfg.num_simulations)
+    e, a = state.board.shape
+    nn = sims + 1
+    # worst case is a single chain of sims edges; perf presets cap it
+    depth_limit = min(nn, mcts_cfg.max_depth or nn)
+    prior_dtype = (torch.bfloat16 if mcts_cfg.prior_dtype == "bfloat16"
+                   else torch.float32)
+    # fixed-point value sums in 1/64 steps; budgets whose |W| could leave
+    # int16's range fall back to exact f32 sums
+    fixed_w = mcts_cfg.value_dtype == "int16" and nn <= 511
+    w_scale = 64.0 if fixed_w else 1.0
+    c_puct = float(mcts_cfg.c_puct)
+    # forced playouts only perturb noisy self-play searches
+    forced_k = float(mcts_cfg.forced_playouts_k if add_noise else 0.0)
+
+    tree = _tree_init(env_cfg, e, nn, prior_dtype, fixed_w,
+                      state.board.device)
+    _write_nodes(tree, 0, state)
+    root_logits, _ = evaluate(state.board, state.to_play, state.last_move)
+    root_legal = state.board == 0
+    root_p = masked_softmax(root_logits, root_legal)
+    if add_noise:
+        if noise is None:
+            noise = dirichlet_noise(generator, mcts_cfg.dirichlet_alpha,
+                                    root_legal)
+        eps = float(mcts_cfg.dirichlet_eps)
+        root_p = (1.0 - eps) * root_p + eps * noise
+    # sign-masked priors: selection reads legality from the prior row
+    tree.p[:, 0] = torch.where(root_legal, root_p, -1.0).to(prior_dtype)
+
+    lb = max(1, int(mcts_cfg.leaf_batch))
+    while sims % lb:
+        lb -= 1  # runtime budgets round down to the largest divisor
+    path_virtual = mcts_cfg.virtual_mode == "path" and lb > 1
+    for p_ in range(sims // lb):
+        _run_pass(env_cfg, evaluate, tree, base=1 + p_ * lb, lb=lb,
+                  d=depth_limit, path_virtual=path_virtual, fixed_w=fixed_w,
+                  w_scale=w_scale, prior_dtype=prior_dtype, c_puct=c_puct,
+                  forced_k=forced_k)
+
+    visits = tree.n[:, 0].float()
+    n_sum = visits.sum(-1)
+    w_root = tree.w[:, 0].float().sum(-1) / w_scale
+    root_value = torch.where(n_sum > 0, w_root / n_sum.clamp(min=1.0), 0.0)
+    return SearchResult(visits=visits, root_value=root_value, priors=root_p)
 
 
 def pi_from_visits(visits: torch.Tensor, temperature: torch.Tensor,
@@ -77,24 +365,3 @@ def sample_actions(generator: torch.Generator,
     w = torch.where(pi > 0, pi, 0.0)
     w = torch.where((w > 0).any(dim=-1, keepdim=True), w, 1.0)
     return torch.multinomial(w, 1, generator=generator)[:, 0].to(torch.int32)
-
-
-def run_mcts(env_cfg: EnvConfig, mcts_cfg: MCTSConfig, evaluate: Evaluator,
-             state: EnvState, generator: Optional[torch.Generator] = None,
-             *, num_simulations: Optional[int] = None,
-             add_noise: bool = True,
-             noise: Optional[torch.Tensor] = None) -> SearchResult:
-    """Search every env's current position (roots must not be terminal)."""
-    if mcts_cfg.branch_cap is None:
-        raise NotImplementedError(
-            "full-width search (branch_cap=None) is not ported yet: "
-            "ROADMAP Queue 1 item 4")
-    if mcts_cfg.select_impl == "pallas":
-        raise NotImplementedError(
-            "select_impl='pallas' (packed-tree search and its descent "
-            "kernel) is not ported yet: ROADMAP Queue 1 item 17, Queue 2 "
-            "item 2")
-    from alphafive_tpu_torch.mcts.search_capped import run_mcts_capped
-    return run_mcts_capped(env_cfg, mcts_cfg, evaluate, state, generator,
-                           num_simulations=num_simulations,
-                           add_noise=add_noise, noise=noise)

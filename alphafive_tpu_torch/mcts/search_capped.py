@@ -37,8 +37,9 @@ from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
 from alphafive_tpu_torch.mcts.search import (Evaluator, SearchResult,
-                                             _puct_scores_n, dirichlet_noise,
-                                             masked_softmax)
+                                             _gather_env, _puct_scores_n,
+                                             _select_where, _write_nodes,
+                                             dirichlet_noise, masked_softmax)
 
 
 @dataclasses.dataclass
@@ -158,26 +159,12 @@ def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
     eidx2 = torch.arange(e, device=dev)[:, None]
     safe_act = tree.cand_act[eidx2, lps, safe_slot].long()
 
-    parent = EnvState(
-        board=tree.node_board[eidx2, lps],
-        to_play=tree.node_to_play[eidx2, lps],
-        last_move=tree.node_last[eidx2, lps],
-        move_count=tree.node_count[eidx2, lps],
-        done=tree.node_done[eidx2, lps],
-        winner=tree.node_winner[eidx2, lps],
-    )
+    parent = _gather_env(tree, lps)
     flat = lambda x: x.reshape((e * lb,) + x.shape[2:])
     unflat = lambda x: x.reshape((e, lb) + x.shape[1:])
     stepped = vector.step(env_cfg, parent.map(flat),
                           flat(safe_act)).map(unflat)
-
-    def sel_(a_, b_):
-        m = is_revisit.reshape(is_revisit.shape + (1,) * (a_.dim() - 2))
-        return torch.where(m, a_, b_)
-
-    leaf = EnvState(**{f.name: sel_(getattr(parent, f.name),
-                                    getattr(stepped, f.name))
-                       for f in dataclasses.fields(EnvState)})
+    leaf = _select_where(is_revisit, parent, stepped)
 
     # duplicate expansions (two lanes stopping at the same unexpanded
     # edge) all link to the first lane's node id
@@ -202,12 +189,7 @@ def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
                               prior_dtype)
 
     new = slice(base, base + lb)
-    tree.node_board[:, new] = stepped.board
-    tree.node_to_play[:, new] = stepped.to_play
-    tree.node_last[:, new] = stepped.last_move
-    tree.node_count[:, new] = stepped.move_count
-    tree.node_done[:, new] = stepped.done
-    tree.node_winner[:, new] = stepped.winner
+    _write_nodes(tree, new, stepped)
     tree.p[:, new] = slot_p
     tree.cand_act[:, new] = slot_act
     # child starts at -1 and no selected edge has a child yet, so adding
@@ -290,12 +272,7 @@ def run_mcts_capped(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
         node_count=z((e, nn), torch.int32),
         node_board=z((e, nn, a), torch.int8),
     )
-    tree.node_board[:, 0] = state.board
-    tree.node_to_play[:, 0] = state.to_play
-    tree.node_last[:, 0] = state.last_move
-    tree.node_count[:, 0] = state.move_count
-    tree.node_done[:, 0] = state.done
-    tree.node_winner[:, 0] = state.winner
+    _write_nodes(tree, 0, state)
 
     root_logits, _ = evaluate(state.board, state.to_play, state.last_move)
     root_legal = state.board == 0

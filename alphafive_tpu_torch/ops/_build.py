@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` source is compiled by ``nvcc`` into one shared library
-with a plain C interface, ``build/kernels/<hash>/libalphafive_kernels.so``
-at the repository root, and loaded with ctypes. ``<hash>`` covers the
-sources and the flags, so an edit rebuilds and an unchanged tree reuses
-the library. The build runs at first use, never at import: hosts without
-nvcc (the CPU test hosts) import every module and never get here.
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into one shared library with
+a plain C interface, ``build/kernels/<hash>/libalphafive_kernels.so`` at
+the repository root, loaded with ctypes. ``<hash>`` covers the sources and
+the flags, so an edit rebuilds and an unchanged tree reuses the library.
+The build runs at first use, never at import: hosts without nvcc (the CPU
+test hosts) import every module and never get here.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+         "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_seconds = None  # wall time of the build (or load) in this process
@@ -49,9 +50,35 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds, out_dir: str) -> None:
+    """Run the nvcc commands `cmds` in parallel; raise if any fails."""
+    global build_log
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs))
+    build_log += log
+    with open(os.path.join(out_dir, "build.log"), "a") as f:
+        f.write(log)
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.alphafive_resblock.restype = i32
+    lib.alphafive_resblock.argtypes = [i32] + [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.alphafive_select.restype = i32
+    lib.alphafive_select.argtypes = ([ptr] + [i32] * 5 + [f32] * 2
+                                     + [ptr] * 5 + [ptr])
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built first if this source hash has none."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds
     if _lib is not None:
         return _lib
     t0 = time.time()
@@ -59,21 +86,16 @@ def load() -> ctypes.CDLL:
     so = os.path.join(out_dir, "libalphafive_kernels.so")
     if not os.path.exists(so):
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *FLAGS, "-o", tmp, *_SOURCES]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        with open(os.path.join(out_dir, "build.log"), "w") as f:
-            f.write(" ".join(cmd) + "\n" + build_log)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log}")
+        nvcc, tag = _nvcc(), os.getpid()
+        objs = [os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+                for src in _SOURCES]
+        _run([[nvcc, *FLAGS, "-c", "-o", obj, src]
+              for src, obj in zip(_SOURCES, objs)], out_dir)
+        tmp = f"{so}.{tag}.tmp"
+        _run([[nvcc, "-shared", "-o", tmp, *objs]], out_dir)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
-    lib.alphafive_resblock.restype = ctypes.c_int
-    lib.alphafive_resblock.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p])
+    _bind(lib)
     _lib = lib
     build_seconds = time.time() - t0
     return lib

@@ -4,18 +4,32 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card, checks a bundled net,
-and drives the port's self-play main path (``chip_15x15`` with
-``net.use_pallas=true``: 256 envs, 400 sims per move, the bundled 15×15
-weights) through ``alphafive_tpu_torch.benchmarks.selfplay_bench.run``.
-Each phase prints one JSON line; any failure raises. The last lines are
-the kernel table, the card's name and power limit from nvidia-smi, and
-``{"ok": true, "device": {...}}``. There is no CPU path: without CUDA the
-script exits non-zero before printing any result. Imports nothing of JAX.
+and drives the port's two paths through the entry points a user calls:
+
+* self-play at ``chip_15x15`` with ``net.use_pallas=true`` (256 envs, 400
+  sims per move, the bundled 15×15 weights) through
+  ``alphafive_tpu_torch.benchmarks.selfplay_bench.run`` — the resblock
+  kernel's path;
+* ``python -m alphafive_tpu_torch.cli eval --preset chip_15x15`` with the
+  packed-tree search (``mcts.select_impl=pallas``, full width,
+  ``leaf_batch`` 1: 400 sims per net move through the select kernel)
+  against the rollout anchor — the select kernel's path.
+
+Before the eval, the packed search itself is run with the kernel and with
+the plain descent and against the full-width search. Each phase prints one
+JSON line; any failure raises. The last lines are the kernel table, the
+card's name and power limit from nvidia-smi, and ``{"ok": true, "device":
+{...}}``. There is no CPU path: without CUDA the script exits non-zero
+before printing any result. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -27,6 +41,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from alphafive_tpu_torch.ops import _build, resblock as rb  # noqa: E402
+from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 
 # kernel vs plain: (batch, board, channels, dtype); the first two are the
 # self-play path's pass and root forwards, the rest the other bundles
@@ -41,6 +56,17 @@ TOL = {torch.bfloat16: (5e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 NET_TOL = {"logits": (1e-1, 2e-2), "value": 2e-2}
 SELFPLAY_PLIES, SELFPLAY_REPEATS = 4, 2
 FORWARDS_PER_PLY = 400 // 8 + 1   # 50 passes of 8 lanes + the root
+# packed-tree search: 400 sims per move, descents capped at 64 edges
+SIMS, DEPTH = 400, 64
+# select kernel vs plain: (bundle, envs) of the searches whose trees are
+# compared; the first two are the 15×15 shapes, the last a 19×19 tree
+SELECT_TREES = [("15x15", 16), ("15x15", 256), ("19x19", 16)]
+FORCED_K = 2.0   # the forced-playout gate's k in the second comparison
+# cli eval: two games against the rollout anchor at a small budget
+EVAL_ARGV = ["eval", "--preset", "chip_15x15",
+             "--set", "mcts.select_impl=pallas",
+             "--set", "mcts.branch_cap=none", "--set", "mcts.leaf_batch=1",
+             "--games", "2", "--anchor-rollouts", "16"]
 
 
 def emit(phase: str, **kw) -> None:
@@ -80,7 +106,8 @@ def phase_device():
 def phase_build():
     _build.load()
     regs = [line.strip() for line in _build.build_log.splitlines()
-            if "registers" in line or "spill" in line]
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill"))]
     emit("build", seconds=_build.build_seconds, ptxas=regs)
 
 
@@ -114,11 +141,11 @@ def phase_kernel_vs_plain():
     return rows
 
 
-def random_positions(env_cfg, n: int, max_plies: int):
+def random_states(env_cfg, n: int, max_plies: int, seed: int = 1):
     """`n` positions from uniformly random legal play (0..max_plies moves,
     games that end are reset)."""
     from alphafive_tpu_torch.env import vector
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     st = vector.init(env_cfg, n, "cuda")
     stop = torch.randint(0, max_plies + 1, (n,), generator=g, device="cuda")
     for ply in range(max_plies):
@@ -133,7 +160,7 @@ def random_positions(env_cfg, n: int, max_plies: int):
                            getattr(st, f), getattr(nxt, f))
             for f in ("board", "to_play", "last_move", "move_count", "done",
                       "winner")})
-    return vector.state_features(env_cfg, st)
+    return st
 
 
 def phase_bundle():
@@ -141,7 +168,8 @@ def phase_bundle():
     from alphafive_tpu_torch.train.checkpoint import load_model
     params, stats, cfg = load_model(os.path.join(ROOT, "pretrained",
                                                  "15x15"))
-    feats = random_positions(cfg.env, 2048, 60)
+    from alphafive_tpu_torch.env import vector
+    feats = vector.state_features(cfg.env, random_states(cfg.env, 2048, 60))
     kernel_net = FusedPolicyValueNet(cfg.env, cfg.net, params, stats, "cuda")
     plain_net = FusedPolicyValueNet(cfg.env, cfg.net, params, stats, "cuda",
                                     plain=True)
@@ -201,6 +229,172 @@ def phase_selfplay(params, stats, saved_cfg, card: str):
     return launches
 
 
+def packed_search(bundle: str, envs: int, seed: int, select=None):
+    """Search `envs` random positions with a bundle net on the packed tree:
+    (SearchResult, PackedTree, seconds), f32 priors and values."""
+    from alphafive_tpu_torch.config import MCTSConfig
+    from alphafive_tpu_torch.mcts.search_packed import run_mcts_packed
+    from alphafive_tpu_torch.models.evaluator import net_evaluator
+    from alphafive_tpu_torch.train.checkpoint import load_model
+    params, stats, cfg = load_model(os.path.join(ROOT, "pretrained", bundle))
+    evaluate = net_evaluator(cfg.env, cfg.net, params, stats, "cuda")
+    st = random_states(cfg.env, envs, 30, seed)
+    mcts = MCTSConfig(num_simulations=SIMS, max_depth=DEPTH,
+                      select_impl="pallas")
+    kw = {} if select is None else {"select": select}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, tree = run_mcts_packed(cfg.env, mcts, evaluate, st, add_noise=False,
+                                return_tree=True, **kw)
+    torch.cuda.synchronize()
+    return res, tree, time.perf_counter() - t0, (cfg, evaluate, st, mcts)
+
+
+def phase_select_kernel_vs_plain():
+    """The select kernel against its plain version on the trees 400-sim
+    searches left, with forced_k 0 and > 0 and one terminal root: all five
+    outputs exactly equal."""
+    rows = []
+    for i, (bundle, envs) in enumerate(SELECT_TREES):
+        res, tree, _, (cfg, *_) = packed_search(bundle, envs, seed=10 + i)
+        a = cfg.env.num_actions
+        cases = [("tree", tree.packed, 0.0), ("tree", tree.packed, FORCED_K)]
+        if i == 0:
+            done_root = tree.packed.clone()
+            done_root[::3, 0, sel.SEC_META, 0] = 1.0
+            cases.append(("terminal_roots", done_root, 0.0))
+        base_act = None
+        for kind, packed, fk in cases:
+            got = sel.select_batch(packed, a, DEPTH, 5.0, fk)
+            torch.cuda.synchronize()
+            ref = sel.select_batch_reference(packed, a, DEPTH, 5.0, fk)
+            equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+            if base_act is None:
+                base_act = ref[1]
+            row = dict(bundle=bundle, envs=envs, a_pad=packed.shape[-1],
+                       nodes=packed.shape[1], depth_limit=DEPTH,
+                       forced_k=fk, case=kind, equal=equal,
+                       max_abs_err=max((g - r).abs().max().item()
+                                       for g, r in zip(got, ref)),
+                       mean_depth=ref[2].float().mean().item(),
+                       revisits=int((ref[1] < 0).sum()),
+                       acts_changed_vs_k0=int((ref[1] != base_act).sum()))
+            if not equal:
+                emit("select_kernel_vs_plain", **row, ok=False)
+                raise AssertionError(f"select kernel disagrees: {row}")
+            row["ms"] = cuda_ms(lambda: sel.select_batch(packed, a, DEPTH,
+                                                         5.0, fk))
+            row["plain_ms"] = cuda_ms(lambda: sel.select_batch_reference(
+                packed, a, DEPTH, 5.0, fk))
+            emit("select_kernel_vs_plain", **row, ok=True)
+            rows.append(row)
+        if (res.visits.sum(-1) != SIMS).any():
+            raise AssertionError(f"{bundle}: a root's visits do not sum to "
+                                 f"{SIMS}")
+    return rows
+
+
+def phase_search_packed(card: str):
+    """run_mcts_packed with the 15×15 bundle, 16 envs, 400 sims, depth cap
+    64: through the kernel, through the plain descent, and against the
+    full-width search at leaf_batch 1 (all f32: equal visits)."""
+    from alphafive_tpu_torch.mcts import search
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    packed_search("15x15", 16, seed=20)           # warm-up
+    sel.select_launches = 0
+    res_k, _, t_k, (cfg, evaluate, st, mcts) = packed_search("15x15", 16,
+                                                             seed=20)
+    launches = sel.select_launches
+    res_p, _, t_p, _ = packed_search("15x15", 16, seed=20,
+                                     select=sel.select_batch_reference)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_f = search.run_mcts(cfg.env, dataclasses.replace(
+        mcts, select_impl="xla", leaf_batch=1), evaluate, st,
+        add_noise=False)
+    torch.cuda.synchronize()
+    t_f = time.perf_counter() - t0
+    sims = 16 * SIMS
+    out = dict(
+        bundle="pretrained/15x15", envs=16, sims=SIMS, max_depth=DEPTH,
+        select_launches=launches, expected_launches=SIMS,
+        kernel_equals_plain=bool(torch.equal(res_k.visits, res_p.visits)),
+        packed_equals_full_width=bool(torch.equal(res_k.visits,
+                                                  res_f.visits)),
+        roots_sum_to_sims=bool((res_k.visits.sum(-1) == SIMS).all()),
+        root_value_max_diff_full_width=(res_k.root_value
+                                        - res_f.root_value).abs().max()
+        .item(),
+        kernel_seconds=t_k, plain_seconds=t_p, full_width_seconds=t_f,
+        sims_per_s_kernel=sims / t_k, sims_per_s_plain=sims / t_p,
+        sims_per_s_full_width=sims / t_f, nvidia_smi=nvidia_smi(), card=card)
+    ok = (launches == SIMS and out["kernel_equals_plain"]
+          and out["packed_equals_full_width"] and out["roots_sum_to_sims"]
+          and out["root_value_max_diff_full_width"] <= 1e-5
+          and bool(torch.equal(res_k.root_value, res_p.root_value)))
+    emit("search_packed", **out, ok=ok)
+    if not ok:
+        raise AssertionError("packed search phase failed its checks")
+    return out
+
+
+def phase_eval(card: str):
+    """`cli eval` at chip_15x15 through the packed search, 2 games against
+    a 16-rollout anchor. Every move legal (stones on the board = moves
+    made, colours alternate), results add up, and 400 select launches per
+    net search."""
+    from alphafive_tpu_torch import cli
+    from alphafive_tpu_torch.train import evaluate as ev_mod
+    finals = []
+    play_games = ev_mod.play_games
+
+    def recording(*args, **kw):
+        st = play_games(*args, **kw)
+        finals.append(st)
+        return st
+
+    ev_mod.play_games = recording
+    buf = io.StringIO()
+    sel.select_launches = 0
+    rb.resblock_launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(EVAL_ARGV)
+        torch.cuda.synchronize()
+    finally:
+        ev_mod.play_games = play_games
+    seconds = time.perf_counter() - t0
+    launches = sel.select_launches
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    plies, net_searches, legal = [], 0, True
+    for st in finals:   # one game each: the net black, then white
+        m = int(st.move_count[0])
+        stones = st.board[0]
+        black, white = int((stones == 1).sum()), int((stones == -1).sum())
+        legal &= (black + white == m and 0 <= black - white <= 1
+                  and bool(st.done[0]))
+        plies.append(m)
+        # two plies per call: the call that ends the game runs both plies,
+        # so each side searched ceil(m / 2) times
+        net_searches += math.ceil(m / 2)
+    out = dict(argv=EVAL_ARGV, result=result, rc=rc, wall_seconds=seconds,
+               plies=plies, net_searches=net_searches,
+               select_launches=launches,
+               expected_launches=SIMS * net_searches,
+               resblock_launches=rb.resblock_launches, all_moves_legal=legal,
+               nvidia_smi=nvidia_smi(), card=card)
+    ok = (rc == 0 and len(finals) == 2 and legal
+          and result["games"] == 2
+          and result["wins"] + result["losses"] + result["draws"] == 2
+          and launches == SIMS * net_searches > 0)
+    emit("eval", **out, ok=ok)
+    if not ok:
+        raise AssertionError("cli eval phase failed its checks")
+    return launches
+
+
 def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -209,15 +403,23 @@ def main() -> int:
     phase_build()
     rows = phase_kernel_vs_plain()
     params, stats, saved_cfg = phase_bundle()
-    launches = phase_selfplay(params, stats, saved_cfg, card)
+    rb_launches = phase_selfplay(params, stats, saved_cfg, card)
+    sel_rows = phase_select_kernel_vs_plain()
+    phase_search_packed(card)
+    sel_launches = phase_eval(card)
     emit("total", seconds=time.time() - t0)
-    main_row = rows[0]
+    main_row, sel_row = rows[0], sel_rows[0]
     print(json.dumps({"kernels": [{
         "name": "fused_resblock", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
-        "launches": launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}]}),
+        "launches": rb_launches, "max_abs_err": main_row["max_abs_err"],
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}, {
+        "name": "select_batch", "route": "cuda",
+        "source": "alphafive_tpu_torch/csrc/select.cu",
+        "replaces": "alphafive_tpu/ops/pallas_select.py:189",
+        "launches": sel_launches, "max_abs_err": sel_row["max_abs_err"],
+        "ms": sel_row["ms"], "plain_ms": sel_row["plain_ms"]}]}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

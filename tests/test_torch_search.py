@@ -117,10 +117,13 @@ def test_unported_modes_raise():
     env = EnvConfig(board_size=5, n_in_row=4)
     st = vector.init(env, 1)
     ev = torch_frozen_evaluator(*frozen_weights(25, 0))
-    with pytest.raises(NotImplementedError):
-        search.run_mcts(env, MCTSConfig(num_simulations=8), ev, st)
-    with pytest.raises(NotImplementedError):
+    # the JAX package asserts both: branch_cap with the packed search, and
+    # the packed search with leaf_batch > 1
+    with pytest.raises(ValueError):
         search.run_mcts(env, MCTSConfig(num_simulations=8, branch_cap=8,
+                                        select_impl="pallas"), ev, st)
+    with pytest.raises(ValueError):
+        search.run_mcts(env, MCTSConfig(num_simulations=8, leaf_batch=8,
                                         select_impl="pallas"), ev, st)
     with pytest.raises(ValueError):
         search.run_mcts(env, MCTSConfig(num_simulations=8, branch_cap=8,
