@@ -76,7 +76,7 @@ def _device_tables(size: int, device: torch.device):
 
 
 def init(cfg: EnvConfig, num_envs: int,
-         device: torch.device | str = "cpu") -> EnvState:
+         device: torch.device | str = "cuda") -> EnvState:
     a = cfg.num_actions
     return EnvState(
         board=torch.zeros((num_envs, a), dtype=torch.int8, device=device),

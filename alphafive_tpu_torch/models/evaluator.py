@@ -21,7 +21,7 @@ from alphafive_tpu_torch.models.resnet import (FusedPolicyValueNet,
 
 
 def net_evaluator(env_cfg: EnvConfig, net_cfg: NetConfig, params,
-                  batch_stats, device="cpu") -> Callable:
+                  batch_stats, device="cuda") -> Callable:
     """Policy-value-net leaf evaluator. ``net_cfg.use_pallas`` selects the
     fused forward (the resblock kernel on CUDA), as it selects the Pallas
     forward in the JAX package."""

@@ -137,7 +137,7 @@ class PolicyValueNet(nn.Module):
 
     @classmethod
     def from_flax(cls, env: EnvConfig, net: NetConfig, params, batch_stats,
-                  device="cpu") -> "PolicyValueNet":
+                  device="cuda") -> "PolicyValueNet":
         m = cls(env, net)
         m.stem.load_flax(params["stem_conv"], params["stem_bn"],
                          batch_stats["stem_bn"])
@@ -178,7 +178,7 @@ class FusedPolicyValueNet(nn.Module):
     device — the comparison the card's smoke check makes."""
 
     def __init__(self, env: EnvConfig, net: NetConfig, params, batch_stats,
-                 device="cpu", plain: bool = False):
+                 device="cuda", plain: bool = False):
         super().__init__()
         self.dtype = dt = compute_dtype(net)
         self.plain = plain

@@ -71,6 +71,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.alphafive_resblock.restype = i32
     lib.alphafive_resblock.argtypes = [i32] + [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.alphafive_resblock_variant.restype = i32
+    lib.alphafive_resblock_variant.argtypes = [i32] * 4
     lib.alphafive_select.restype = i32
     lib.alphafive_select.argtypes = ([ptr] + [i32] * 5 + [f32] * 2
                                      + [ptr] * 5 + [ptr])

@@ -21,7 +21,11 @@ import torch.nn.functional as F
 CHANNELS = (64, 96, 128)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
 
+# csrc/resblock.cu's variant codes (alphafive_resblock_variant)
+VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 3: "f32_plain"}
 resblock_launches = 0  # kernel launches since the last reset
+# the same launches by the variant the library ran (see `variant`)
+variant_launches = dict.fromkeys(VARIANTS.values(), 0)
 
 
 def pack_conv_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -60,7 +64,55 @@ def fused_resblock_reference(x, w1, b1, w2, b2) -> torch.Tensor:
     return torch.relu(z).to(dt)
 
 
-def _check(x, w1, b1, w2, b2):
+# Shared-memory bytes of each kernel variant of csrc/resblock.cu, whose
+# resblock_variant() makes the same choice: `fused_resblock` raises if the
+# two disagree at a shape it launches. The bf16 kernels keep
+# activations as C / 8 channel-chunk planes over an h x (w + 1) grid of
+# output positions, plus the rows the taps shift into and a junk row:
+# "resident" holds both convs' 18 taps (147,456 B at C = 64) beside two
+# such buffers of 2 x (48 or 120) positions; "streaming" one buffer of
+# 3 x 128 positions beside a ring of 3 taps. "tiled" (f32) double-buffers
+# one 16 KB tap beside two halo-padded buffers of 272 B rows; "f32_plain"
+# holds y of one sample.
+def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
+    def rows(positions):
+        return (positions + 2 * (w + 1) + 9) // 8 * 8 + 1
+    if variant == "resident":
+        n = 48 if h * (w + 1) <= 96 else 120
+        return 18 * c * c * 2 + 2 * (c // 8) * rows(2 * n) * 16
+    if variant == "tiled":
+        return (2 * c * c + 2 * (h + 2) * (w + 2) * (c + 4)) * 4
+    if variant == "streaming":
+        return 3 * c * c * 2 + (c // 8) * rows(384) * 16
+    return h * w * c * 4
+
+
+def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
+    """The kernel variant that runs an [*, h, w, c] block of `dtype`:
+    "resident" (bf16, C = 64, h·(w + 1) up to 240, e.g. 15×15: weights
+    resident, wgmma), "tiled" (f32, C = 64, up to 256 pixels: register-
+    blocked SIMT), "streaming" (any other bf16 shape up to h·(w + 1) = 384,
+    e.g. 19×19: taps streamed, wgmma) or "f32_plain" (any other f32 shape:
+    plain FMA). Raises when no variant fits."""
+    bf16 = dtype == torch.bfloat16
+    cells = h * (w + 1)
+    if bf16:
+        kinds = ([("resident", cells <= 240)] if c == 64 else []) + [
+            ("streaming", cells <= 384)]
+    else:
+        kinds = ([("tiled", h * w <= 256)] if c == 64 else []) + [
+            ("f32_plain", True)]
+    for v, shape_ok in kinds:
+        need = _smem_bytes(v, h, w, c, bf16)
+        if shape_ok and need <= _SMEM_LIMIT:
+            return v
+    raise ValueError(f"{h}x{w}x{c} {dtype}: no kernel variant takes this "
+                     f"shape within {_SMEM_LIMIT} bytes of shared memory "
+                     f"per block (the last tried needs {need})")
+
+
+def _check(x, w1, b1, w2, b2) -> str:
+    """Validate the operands; return the kernel variant that will run."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     b, h, w, c = x.shape
@@ -79,13 +131,12 @@ def _check(x, w1, b1, w2, b2):
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if x.dtype == torch.bfloat16:
-        smem = (2 * h * w * (c + 8) + c * (c + 8)) * 2
-    else:
-        smem = h * w * c * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{h}x{w}x{c} {x.dtype} needs {smem} bytes of "
-                         f"shared memory per block (> {_SMEM_LIMIT})")
+    # the kernels move 16 B at a time (cp.async, vector loads)
+    for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2),
+                    ("b2", b2)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return variant(x.dtype, h, w, c)
 
 
 def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -95,18 +146,23 @@ def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
         return fused_resblock_reference(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise RuntimeError(f"no resblock kernel for device {x.device}")
-    _check(x, w1, b1, w2, b2)
+    kind = _check(x, w1, b1, w2, b2)
     from alphafive_tpu_torch.ops import _build
     lib = _build.load()
     out = torch.empty_like(x)
     b, h, w, c = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    ran = VARIANTS.get(lib.alphafive_resblock_variant(bf16, h, w, c))
+    if ran != kind:
+        raise RuntimeError(f"{h}x{w}x{c} {x.dtype}: variant() picks {kind}, "
+                           f"csrc/resblock.cu {ran or 'none'}")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = lib.alphafive_resblock(
-        1 if x.dtype == torch.bfloat16 else 0, x.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        b, h, w, c, stream)
+        err = lib.alphafive_resblock(
+            bf16, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(), b, h, w, c,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"resblock kernel launch failed: CUDA error {err}")
     resblock_launches += 1
+    variant_launches[ran] += 1
     return out

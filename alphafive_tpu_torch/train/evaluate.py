@@ -56,7 +56,7 @@ def _play_plies(env_cfg: EnvConfig, mcts_black: MCTSConfig,
 
 def random_openings(env_cfg: EnvConfig, num_games: int, plies: int,
                     generator: torch.Generator,
-                    device="cpu") -> EnvState:
+                    device="cuda") -> EnvState:
     """Board states after `plies` uniformly random legal moves. `plies`
     must be even (black to move) and below 2·n_in_row − 1, so no opening
     is terminal. `generator` lives on `device`."""
@@ -80,7 +80,7 @@ def play_games(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
                mcts_black: Optional[MCTSConfig] = None,
                mcts_white: Optional[MCTSConfig] = None,
                init_state: Optional[EnvState] = None,
-               device="cpu") -> EnvState:
+               device="cuda") -> EnvState:
     """Black = eval_black searcher, white = eval_white. Returns the final
     state. Per-side search configs default to `mcts_cfg`; `init_state`
     (e.g. random_openings, black to move) replaces the empty boards.
@@ -105,7 +105,7 @@ def evaluate_vs(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
                 mcts_b: Optional[MCTSConfig] = None,
                 opening_plies: int = 0,
                 plies_per_call: int = 2,
-                device="cpu") -> Dict[str, float]:
+                device="cuda") -> Dict[str, float]:
     """A plays black in half the games, white in the other half. Returns
     win/draw/loss counts and score for A. `opening_plies` > 0 starts both
     halves from the same random openings (drawn from `generator`), which

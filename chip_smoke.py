@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version on the card, checks a bundled net,
-and drives the port's two paths through the entry points a user calls:
+each against its plain PyTorch version on the card and times it beside
+its bound (and, for the resblock, cuDNN's two convolutions as the
+yardstick), checks a bundled net, and drives the port's two paths through
+the entry points a user calls:
 
 * self-play at ``chip_15x15`` with ``net.use_pallas=true`` (256 envs, 400
   sims per move, the bundled 15×15 weights) through
   ``alphafive_tpu_torch.benchmarks.selfplay_bench.run`` — the resblock
-  kernel's path;
+  kernel's path, every launch in its resident variant;
 * ``python -m alphafive_tpu_torch.cli eval --preset chip_15x15`` with the
   packed-tree search (``mcts.select_impl=pallas``, full width,
   ``leaf_batch`` 1: 400 sims per net move through the select kernel)
@@ -43,11 +45,22 @@ sys.path.insert(0, ROOT)
 from alphafive_tpu_torch.ops import _build, resblock as rb  # noqa: E402
 from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 
-# kernel vs plain: (batch, board, channels, dtype); the first two are the
-# self-play path's pass and root forwards, the rest the other bundles
-SHAPES = [(2048, 15, 64, torch.bfloat16), (256, 15, 64, torch.bfloat16),
-          (2048, 9, 64, torch.bfloat16), (2048, 19, 96, torch.bfloat16),
-          (2048, 19, 128, torch.bfloat16), (2048, 15, 64, torch.float32)]
+# kernel vs plain: (batch, board, channels, dtype, the variant that must
+# run it); the first two are the self-play path's pass and root forwards,
+# the next four the other bundles, and the last five every other kernel
+# instantiation of csrc/resblock.cu (bf16 streaming at 64 channels, tiled
+# at 9x9, f32 plain at each channel count)
+SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
+          (256, 15, 64, torch.bfloat16, "resident"),
+          (2048, 9, 64, torch.bfloat16, "resident"),
+          (2048, 19, 96, torch.bfloat16, "streaming"),
+          (2048, 19, 128, torch.bfloat16, "streaming"),
+          (2048, 15, 64, torch.float32, "tiled"),
+          (256, 19, 64, torch.bfloat16, "streaming"),
+          (256, 9, 64, torch.float32, "tiled"),
+          (256, 19, 64, torch.float32, "f32_plain"),
+          (256, 19, 96, torch.float32, "f32_plain"),
+          (256, 19, 128, torch.float32, "f32_plain")]
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -62,6 +75,11 @@ SIMS, DEPTH = 400, 64
 # compared; the first two are the 15×15 shapes, the last a 19×19 tree
 SELECT_TREES = [("15x15", 16), ("15x15", 256), ("19x19", 16)]
 FORCED_K = 2.0   # the forced-playout gate's k in the second comparison
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
+# tensor cores, f32 outside the tensor cores, device memory
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+WINDOWS, ITERS = 5, 20   # timing: median of 5 CUDA-event windows of 20 calls
 # cli eval: two games against the rollout anchor at a small budget
 EVAL_ARGV = ["eval", "--preset", "chip_15x15",
              "--set", "mcts.select_impl=pallas",
@@ -80,17 +98,43 @@ def nvidia_smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
+def cuda_ms(fn) -> tuple[float, float]:
+    """Median ms per call over WINDOWS CUDA-event windows of ITERS calls
+    each (after 3 warm-up calls), and the spread (max - min) of the
+    windows."""
     for _ in range(3):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ITERS):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / ITERS)
+    times.sort()
+    return times[len(times) // 2], times[-1] - times[0]
+
+
+def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the
+    operations over the type's peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def library_pair(x, w1, w2):
+    """The two convolutions of a block as cuDNN computes them (channels-
+    last, no bias, ReLU or rounding): the yardstick, never the port."""
+    c = x.shape[-1]
+    oihw = [w.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last) for w in (w1, w2)]
+    xc = x.permute(0, 3, 1, 2)   # NHWC storage: channels-last NCHW view
+    conv = torch.nn.functional.conv2d
+    return lambda: conv(conv(xc, oihw[0], padding=1), oihw[1], padding=1)
 
 
 def phase_device():
@@ -114,28 +158,42 @@ def phase_build():
 def phase_kernel_vs_plain():
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, s, c, dt in SHAPES:
+    for b, s, c, dt, kind in SHAPES:
         scale = 1.0 / (3.0 * c ** 0.5)
         rnd = lambda *shape: torch.randn(*shape, generator=g, device="cuda")
         x = rnd(b, s, s, c).relu().to(dt)
         w1, w2 = ((rnd(9, c, c) * scale).to(dt) for _ in range(2))
         b1, b2 = (0.1 * rnd(c) for _ in range(2))
+        rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
         got = rb.fused_resblock(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
+        if rb.variant_launches[kind] != 1:
+            raise AssertionError(f"{b}x{s}x{s}x{c} {dt}: want {kind}, ran "
+                                 f"{rb.variant_launches}")
         ref = rb.fused_resblock_reference(x, w1, b1, w2, b2)
         err = (got.float() - ref.float()).abs()
         atol, rtol = TOL[dt]
         worst = (err - rtol * ref.float().abs()).max().item()
         row = dict(batch=b, board=s, channels=c, dtype=str(dt)[6:],
-                   max_abs_err=err.max().item(),
+                   variant=kind, max_abs_err=err.max().item(),
                    max_rel_err=(err / ref.float().abs().clamp(min=1e-3))
                    .max().item(), atol=atol, rtol=rtol)
         if not worst <= atol:
             emit("kernel_vs_plain", **row, ok=False)
             raise AssertionError(f"resblock kernel disagrees: {row}")
-        row["ms"] = cuda_ms(lambda: rb.fused_resblock(x, w1, b1, w2, b2))
-        row["plain_ms"] = cuda_ms(
+        row["ms"], row["ms_spread"] = cuda_ms(
+            lambda: rb.fused_resblock(x, w1, b1, w2, b2))
+        row["plain_ms"], row["plain_ms_spread"] = cuda_ms(
             lambda: rb.fused_resblock_reference(x, w1, b1, w2, b2))
+        torch.backends.cudnn.benchmark = True   # cuDNN's best algorithm
+        row["library_ms"], row["library_ms_spread"] = cuda_ms(
+            library_pair(x, w1, w2))
+        torch.backends.cudnn.benchmark = False
+        item = x.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * 2 * b * s * s * c * c * 9,
+            2 * x.numel() * item + 2 * w1.numel() * item + 2 * 4 * c, dt)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
         emit("kernel_vs_plain", **row, ok=True)
         rows.append(row)
     return rows
@@ -211,17 +269,21 @@ def phase_selfplay(params, stats, saved_cfg, card: str):
         plies[0] += 1
 
     rb.resblock_launches = 0
+    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
     out, traj = selfplay_bench.run(
         cfg, plies=SELFPLAY_PLIES, warmup=0, repeats=SELFPLAY_REPEATS,
         device="cuda", params=params, batch_stats=stats, observe=observe,
         return_trajectory=True)
     launches = rb.resblock_launches
+    variants = dict(rb.variant_launches)
     pi_sum = traj.pi.sum(-1)
     ok = bool(bad.item() == 0
               and launches == 4 * FORWARDS_PER_PLY * plies[0]
+              and variants["resident"] == launches
               and torch.isfinite(traj.pi).all()
               and ((pi_sum - 1).abs() < 1e-5).all())
     emit("selfplay", **out, total_plies=plies[0], resblock_launches=launches,
+         variant_launches=variants,
          expected_launches=4 * FORWARDS_PER_PLY * plies[0],
          failed_checks=bad.item(), nvidia_smi=nvidia_smi(), card=card, ok=ok)
     if not ok:
@@ -282,10 +344,20 @@ def phase_select_kernel_vs_plain():
             if not equal:
                 emit("select_kernel_vs_plain", **row, ok=False)
                 raise AssertionError(f"select kernel disagrees: {row}")
-            row["ms"] = cuda_ms(lambda: sel.select_batch(packed, a, DEPTH,
-                                                         5.0, fk))
-            row["plain_ms"] = cuda_ms(lambda: sel.select_batch_reference(
-                packed, a, DEPTH, 5.0, fk))
+            row["ms"], row["ms_spread"] = cuda_ms(
+                lambda: sel.select_batch(packed, a, DEPTH, 5.0, fk))
+            row["plain_ms"], row["plain_ms_spread"] = cuda_ms(
+                lambda: sel.select_batch_reference(packed, a, DEPTH, 5.0,
+                                                   fk))
+            # this data's reads: sections N, W, P of each row on the path
+            # plus its child id and terminal flag; writes: the outputs
+            steps = int((ref[2].long() + 1).sum())
+            a_pad = packed.shape[-1]
+            row["bound_ms"], row["bound_by"] = bound(
+                steps * 3 * a_pad * 10, steps * (3 * a_pad + 2) * 4
+                + sum(t.numel() * 4 for t in ref), torch.float32)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["library_ms"] = None   # no PyTorch call computes it
             emit("select_kernel_vs_plain", **row, ok=True)
             rows.append(row)
         if (res.visits.sum(-1) != SIMS).any():
@@ -414,12 +486,16 @@ def main() -> int:
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
         "launches": rb_launches, "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"]}, {
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"]}, {
         "name": "select_batch", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/select.cu",
         "replaces": "alphafive_tpu/ops/pallas_select.py:189",
         "launches": sel_launches, "max_abs_err": sel_row["max_abs_err"],
-        "ms": sel_row["ms"], "plain_ms": sel_row["plain_ms"]}]}),
+        "ms": sel_row["ms"], "plain_ms": sel_row["plain_ms"],
+        "bound_ms": sel_row["bound_ms"], "bound_by": sel_row["bound_by"],
+        "library_ms": None}]}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

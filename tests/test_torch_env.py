@@ -42,7 +42,7 @@ def test_random_games_bit_equal(rules, size):
     feat_j = jax.jit(jvector.features, static_argnums=0)
     reset_j = jax.jit(jvector.reset_where, static_argnums=0)
     rng = np.random.default_rng(size * 7 + len(rules))
-    st_t, st_j = vector.init(cfg_t, e), jvector.init(cfg_j, e)
+    st_t, st_j = vector.init(cfg_t, e, "cpu"), jvector.init(cfg_j, e)
     finished = 0
     for ply in range(3 * size * size // 2):
         legal = vector.legal_mask(st_t).numpy()

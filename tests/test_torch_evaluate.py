@@ -46,7 +46,7 @@ def test_play_games_matches_jax(size, sims_b, sims_w, lb_w, packed_black):
     full = dict(leaf_batch=lb_w, max_depth=8)
     kw_b, kw_w = (packed, full) if packed_black else (full, packed)
     wb, ww = (frozen_weights(size * size, seed=s) for s in (size, size + 1))
-    st = vector.init(env_t, 3)
+    st = vector.init(env_t, 3, "cpu")
     for acts in ([0, 1, 2], [size + 1, size * size - 1, 3 * size]):
         st = vector.step(env_t, st, torch.tensor(acts, dtype=torch.int32))
     fj = j_play_games(env_j, JMCTSConfig(), jax_frozen_evaluator(*wb),
@@ -57,7 +57,8 @@ def test_play_games_matches_jax(size, sims_b, sims_w, lb_w, packed_black):
     ft = play_games(env_t, MCTSConfig(), torch_frozen_evaluator(*wb),
                     torch_frozen_evaluator(*ww), sims_b, sims_w, 3,
                     mcts_black=MCTSConfig(**kw_b),
-                    mcts_white=MCTSConfig(**kw_w), init_state=st)
+                    mcts_white=MCTSConfig(**kw_w), init_state=st,
+                    device="cpu")
     assert ps.select_launches == 0
     for f in dataclasses.fields(ft):
         np.testing.assert_array_equal(getattr(ft, f.name).numpy(),
@@ -109,7 +110,7 @@ def test_rollout_values_match_jax():
 
 def test_rollout_value_is_a_mean_of_outcomes():
     env = EnvConfig(board_size=5, n_in_row=4)
-    st = vector.init(env, 4)
+    st = vector.init(env, 4, "cpu")
     _, v = rollout_evaluator(env, 8, torch.Generator().manual_seed(1))(
         st.board, st.to_play, st.last_move)
     assert ((v * 8).round() == v * 8).all() and (v.abs() <= 1).all()
@@ -118,7 +119,7 @@ def test_rollout_value_is_a_mean_of_outcomes():
 def test_evaluate_counts_consistent():
     env = EnvConfig(board_size=5, n_in_row=4)
     u = uniform_evaluator(env)
-    res = evaluate_vs(env, MCTSConfig(), u, u, 8, 8, 6)
+    res = evaluate_vs(env, MCTSConfig(), u, u, 8, 8, 6, device="cpu")
     assert res["games"] == 6
     assert res["wins"] + res["losses"] + res["draws"] == 6
     assert 0.0 <= res["score"] <= 1.0
@@ -128,10 +129,11 @@ def test_evaluate_rejects_odd_games():
     env = EnvConfig(board_size=5, n_in_row=4)
     u = uniform_evaluator(env)
     with pytest.raises(ValueError):
-        evaluate_vs(env, MCTSConfig(), u, u, 4, 4, 5)
+        evaluate_vs(env, MCTSConfig(), u, u, 4, 4, 5, device="cpu")
     gumbel = MCTSConfig(root_selection="gumbel")
     with pytest.raises(NotImplementedError, match="item 8"):
-        evaluate_vs(env, MCTSConfig(), u, u, 4, 4, 2, mcts_a=gumbel)
+        evaluate_vs(env, MCTSConfig(), u, u, 4, 4, 2, mcts_a=gumbel,
+                    device="cpu")
 
 
 def test_random_openings_and_per_side_configs():
@@ -139,19 +141,20 @@ def test_random_openings_and_per_side_configs():
     beats a 1-sim side with the same evaluator, so per-side budgets and
     configs reach the right player."""
     env = EnvConfig(board_size=7, n_in_row=5)
-    st = random_openings(env, 8, 4, torch.Generator().manual_seed(0))
+    st = random_openings(env, 8, 4, torch.Generator().manual_seed(0),
+                         "cpu")
     assert not bool(st.done.any())
     assert (st.move_count == 4).all() and (st.to_play == 1).all()
     assert len({bytes(b.numpy()) for b in st.board}) > 1
     with pytest.raises(ValueError):
-        random_openings(env, 2, 3, torch.Generator())
+        random_openings(env, 2, 3, torch.Generator(), "cpu")
     u = uniform_evaluator(env)
     base = MCTSConfig()
     res = evaluate_vs(env, base, u, u, 64, 1, 8,
                       torch.Generator().manual_seed(1),
                       mcts_a=dataclasses.replace(base, max_depth=16),
                       mcts_b=dataclasses.replace(base, max_depth=2),
-                      opening_plies=4)
+                      opening_plies=4, device="cpu")
     assert res["games"] == 8 and res["score"] >= 0.6, res
 
 

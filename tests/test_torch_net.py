@@ -63,8 +63,8 @@ def run_both(size, dtype, seed, batch=4, **net_kw):
     ref_fused = apply_eval_fused(ej, nj, jp, jb, jnp.asarray(x),
                                  interpret=True)
     xt = torch.from_numpy(x)
-    got = PolicyValueNet.from_flax(et, nt, params, bs)(xt)
-    got_fused = FusedPolicyValueNet(et, nt, params, bs)(xt)
+    got = PolicyValueNet.from_flax(et, nt, params, bs, "cpu")(xt)
+    got_fused = FusedPolicyValueNet(et, nt, params, bs, "cpu")(xt)
     return ref, ref_fused, got, got_fused
 
 
@@ -125,9 +125,10 @@ def test_pretrained_9x9_forward_matches_jax():
     ref = jax.jit(lambda p, b, f: apply_eval(JNet(jcfg.env, net_j), p, b,
                                              f))(jparams, jbs, jnp.asarray(x))
     xt = torch.from_numpy(x)
-    assert_close(PolicyValueNet.from_flax(cfg.env, net_t, params, bs)(xt),
+    assert_close(PolicyValueNet.from_flax(cfg.env, net_t, params, bs,
+                                         "cpu")(xt),
                  ref, 2e-4, 2e-4)
-    assert_close(FusedPolicyValueNet(cfg.env, net_t, params, bs)(xt),
+    assert_close(FusedPolicyValueNet(cfg.env, net_t, params, bs, "cpu")(xt),
                  ref, 2e-4, 2e-4)
 
 

@@ -97,3 +97,73 @@ def test_kernel_wrapper_rejects_unsupported():
         big = torch.zeros(1, 25, 25, 128, dtype=torch.bfloat16)
         wb = torch.zeros(9, 128, 128, dtype=torch.bfloat16)
         rb._check(big, wb, torch.zeros(128), wb, torch.zeros(128))  # smem
+
+
+@pytest.mark.parametrize("dtype,size,c,want", [
+    (torch.bfloat16, 15, 64, "resident"),   # self-play's pass and root forwards
+    (torch.bfloat16, 9, 64, "resident"),
+    (torch.bfloat16, 19, 96, "streaming"),
+    (torch.bfloat16, 19, 128, "streaming"),
+    (torch.bfloat16, 19, 64, "streaming"),  # 19 x 20 positions > 240
+    (torch.float32, 15, 64, "tiled"),
+    (torch.float32, 9, 64, "tiled"),
+    (torch.float32, 19, 64, "f32_plain"),   # 361 pixels > 256
+    (torch.float32, 19, 96, "f32_plain"),
+    (torch.float32, 19, 128, "f32_plain"),
+])
+def test_variant_chooser(dtype, size, c, want):
+    """The kernel variant per shape, as csrc/resblock.cu's
+    resblock_variant() picks it, within one block's shared memory."""
+    assert rb.variant(dtype, size, size, c) == want
+    need = rb._smem_bytes(want, size, size, c, dtype == torch.bfloat16)
+    assert need <= rb._SMEM_LIMIT
+    t = torch.zeros(2, size, size, c, dtype=dtype)
+    w = torch.zeros(9, c, c, dtype=dtype)
+    b = torch.zeros(c)
+    assert rb._check(t, w, b, w, b) == want
+
+
+def test_variant_budgets():
+    """Shared-memory bytes of the main-path variants: 18 resident bf16
+    taps (147,456 B) beside two 281-row buffers of 8 channel planes."""
+    assert rb._smem_bytes("resident", 15, 15, 64, True) == 147_456 + 2 * 281 * 128
+    assert rb._smem_bytes("tiled", 15, 15, 64, False) == (
+        2 * 64 * 64 + 2 * 17 * 17 * 68) * 4
+    # 19x19x128 bf16 streams a ring of 3 taps beside one buffer of 16
+    # channel planes of 433 rows (384 positions + 42 shifted + junk)
+    assert rb._smem_bytes("streaming", 19, 19, 128, True) == (
+        3 * 128 * 128 * 2 + 16 * 433 * 16)
+    assert rb._smem_bytes("f32_plain", 19, 19, 128, False) == 19 * 19 * 128 * 4
+    with pytest.raises(ValueError, match="232448"):
+        rb.variant(torch.bfloat16, 25, 25, 128)       # 374,816 B
+    with pytest.raises(ValueError, match="232448"):
+        rb.variant(torch.float32, 25, 25, 128)        # 320,000 B
+
+
+def test_variant_codes_match_source():
+    """VARIANTS names the codes of csrc/resblock.cu's enum Variant, which
+    alphafive_resblock_variant returns and the wrapper counts launches by."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(rb.__file__), os.pardir, "csrc",
+                            "resblock.cu")).read()
+    enum = re.search(r"enum Variant \{(.*?)\};", src, re.S).group(1)
+    codes = {int(v): k for k, v in re.findall(r"k(\w+) = (-?\d+)", enum)}
+    names = {-1: "Refused", 0: "Streaming", 1: "Resident", 2: "Tiled",
+             3: "F32Plain"}
+    assert codes == names
+    assert rb.VARIANTS == {0: "streaming", 1: "resident", 2: "tiled",
+                           3: "f32_plain"}
+    assert set(rb.variant_launches) == set(rb.VARIANTS.values())
+
+
+def test_check_rejects_misaligned():
+    """The kernels move 16 B at a time: an operand that does not start on
+    a 16-byte boundary is refused before any launch."""
+    c = 64
+    flat = torch.zeros(1 + 2 * 15 * 15 * c, dtype=torch.bfloat16)
+    x = flat[1:].view(2, 15, 15, c)                  # contiguous, 2 B off
+    w = torch.zeros(9, c, c, dtype=torch.bfloat16)
+    b = torch.zeros(c)
+    with pytest.raises(ValueError, match="16-byte"):
+        rb._check(x, w, b, w, b)

@@ -86,7 +86,7 @@ def test_capped_search_matches_jax(size, sims, lb, cap, vdt, pdt):
     ev_t = torch_frozen_evaluator(w_l, w_v)
     cfg_t = MCTSConfig(**kw)
 
-    st = vector.init(env_t, e)
+    st = vector.init(env_t, e, "cpu")
     for ply in range(plies):
         rj = run_j(jax_state(st), jax.random.key(ply))
         rt = run_mcts_capped(env_t, cfg_t, ev_t, st, add_noise=False)
@@ -115,7 +115,7 @@ def test_depth_stages_match_jax_loop():
 
 def test_unported_modes_raise():
     env = EnvConfig(board_size=5, n_in_row=4)
-    st = vector.init(env, 1)
+    st = vector.init(env, 1, "cpu")
     ev = torch_frozen_evaluator(*frozen_weights(25, 0))
     # the JAX package asserts both: branch_cap with the packed search, and
     # the packed search with leaf_batch > 1
@@ -158,7 +158,7 @@ def test_root_noise_and_top_c_ties():
     env = EnvConfig(board_size=5, n_in_row=4)
     cfg = MCTSConfig(num_simulations=8, leaf_batch=8, branch_cap=6,
                      dirichlet_eps=0.25)
-    st = vector.init(env, 2)
+    st = vector.init(env, 2, "cpu")
 
     def uniform(board, to_play, last):
         return torch.zeros(board.shape, dtype=torch.float32), torch.zeros(

@@ -85,7 +85,8 @@ def test_full_width_matches_jax(lb, mode, vdt, pdt):
         return search.run_mcts(env_t, cfg_t, ev_t, st,
                                noise=jax_noise(key, st, cfg_t.dirichlet_alpha))
 
-    play_and_compare(run_j, run_t, env_t, vector.init(env_t, e), 2, sims)
+    play_and_compare(run_j, run_t, env_t, vector.init(env_t, e, "cpu"), 2,
+                     sims)
 
 
 # ---------------------------------------------------------------------------
@@ -169,7 +170,8 @@ def test_packed_matches_jax(size, sims, plies, max_depth, noise):
         return search.run_mcts(env_t, cfg_t, ev_t, st, add_noise=noise,
                                noise=nz)
 
-    play_and_compare(run_j, run_t, env_t, vector.init(env_t, 4), plies, sims)
+    play_and_compare(run_j, run_t, env_t, vector.init(env_t, 4, "cpu"), plies,
+                     sims)
     assert ps.select_launches == 0
 
 
@@ -179,7 +181,7 @@ def test_packed_equals_full_width_in_f32():
     (and may differ under bf16/int16, which it ignores)."""
     env = EnvConfig(board_size=7, n_in_row=4)
     ev = torch_frozen_evaluator(*frozen_weights(49, seed=11))
-    st = vector.init(env, 3)
+    st = vector.init(env, 3, "cpu")
     for _ in range(4):
         st = vector.step(env, st, torch.randint(
             0, 49, (3,), generator=torch.Generator().manual_seed(
@@ -201,7 +203,7 @@ def test_done_roots_search_as_revisits():
     depth 0, so its edges get no visits and nothing is expanded."""
     env = EnvConfig(board_size=5, n_in_row=4)
     ev = torch_frozen_evaluator(*frozen_weights(25, seed=2))
-    st = vector.init(env, 2)
+    st = vector.init(env, 2, "cpu")
     # env 0: black wins on the top row; env 1: no line of four
     for a, b in zip((0, 5, 1, 6, 2, 7, 3), (12, 0, 18, 4, 6, 24, 20)):
         st = vector.step(env, st, torch.tensor([a, b], dtype=torch.int32))
@@ -215,7 +217,7 @@ def test_done_roots_search_as_revisits():
 
 def test_dispatch_raises_like_jax():
     env = EnvConfig(board_size=5, n_in_row=4)
-    st = vector.init(env, 1)
+    st = vector.init(env, 1, "cpu")
     ev = torch_frozen_evaluator(*frozen_weights(25, 0))
     with pytest.raises(ValueError):
         search.run_mcts(env, MCTSConfig(num_simulations=8, branch_cap=8,

@@ -51,7 +51,8 @@ def run_both(ev_j, ev_t, seed=0):
     _, tj, sj = fn(jvector.init(cj.env, E), jax.random.key(seed))
     g = torch.Generator().manual_seed(seed)
     _, tt, st = actor.selfplay_chunk(ct.env, ct.mcts, ev_t,
-                                     vector.init(ct.env, E), g, PLIES)
+                                     vector.init(ct.env, E, "cpu"), g,
+                                     PLIES)
     return tj, sj, tt, st
 
 
@@ -91,7 +92,7 @@ def test_selfplay_converted_net(use_pallas):
     jp, jb = (jax.tree.map(jnp.asarray, t) for t in (params, bs))
     ev_j = j_net_evaluator(cj.env, cj.net, jp, jb)
     ev_t = net_evaluator(ct.env, dataclasses.replace(
-        ct.net, use_pallas=use_pallas), params, bs)
+        ct.net, use_pallas=use_pallas), params, bs, "cpu")
     tj, _, tt, _ = run_both(ev_j, ev_t)
     assert_trajectories_equal(tj, tt, pi_atol=1e-6)
 
@@ -100,7 +101,7 @@ def test_gumbel_root_raises():
     ct = small_chip(config)
     cfg = dataclasses.replace(ct.mcts, root_selection="gumbel")
     with pytest.raises(NotImplementedError):
-        actor.selfplay_chunk(ct.env, cfg, None, vector.init(ct.env, 1),
+        actor.selfplay_chunk(ct.env, cfg, None, vector.init(ct.env, 1, "cpu"),
                              torch.Generator(), 1)
 
 
