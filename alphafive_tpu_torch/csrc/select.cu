@@ -18,22 +18,40 @@
 // version's op order, so no multiply-add is contracted and the argmax is
 // bit-equal (one flipped argmax changes the search's visit counts).
 //
-// What bounds it on this card: a dependent chain. Each step reads one row
-// of five sections (5 KB at A_pad = 256) whose address is the previous
-// step's argmax, so a step costs a device-memory round trip plus two block
-// reductions, and a descent is up to depth_limit steps long. Bandwidth is
-// not the limit: 16 envs read 80 KB per step.
+// What bounds it on this card: latency. A descent is a dependent chain:
+// each step's row address is the previous step's argmax, and a search
+// launches the kernel once per simulation, so a launch costs the launch
+// floor plus, for the longest descent in the batch, one device-memory
+// round trip per step and the arithmetic between two round trips.
+// Bandwidth is not the limit (16 envs read 80 KB a step). Both inputs are
+// measured on the card by benchmarks/select_profile.py: the device time of
+// an empty launch (~1.3 us on an H100 80GB HBM3 at 700 W) and one dependent
+// 16-byte-per-lane load of a row in L2 (~180 ns, ~345 SM cycles);
+// chip_smoke.py's latency_bound_ms = floor + max steps x round trip. A
+// step here takes ~2,300 cycles: one warp issues all of a row's arithmetic.
 //
-// What the design does about it (a simple first version, not a tuned one):
-//   * One block of 128 threads per env, so envs descend in parallel on
-//     separate SMs and a block never waits on another env's chain.
-//   * Each step the block reads sections 0-2 of the current row with
-//     coalesced loads, lane a in thread a % 128; the child id and terminal
-//     flag are one load each by thread 0.
-//   * sum N is a block reduction (exact: integer-valued floats below 2^24),
-//     the argmax a block-wide (score, index) reduction that keeps the lower
-//     index on ties; thread 0 records the path entry and broadcasts the
-//     next node through shared memory.
+// What the design does about it:
+//   * One warp per env, one warp per block: an env's step never waits on
+//     a barrier or on shared memory, and the blocks spread over the SMs
+//     (132 SMs x 32 blocks hold 4,224 envs at once; paths launch <= 256).
+//   * One round trip per step. Each lane issues all its loads of the row
+//     before it uses any: 16-byte loads of sections N, W, P and child, lane
+//     l holding actions 4l + 128j .. 4l + 128j + 3 for j < A_pad / 128,
+//     and the terminal flag in the same round.
+//   * sum N is an xor-shuffle sum (exact in any order: integer-valued
+//     floats below 2^24), the argmax an xor-shuffle (score, index)
+//     reduction under better(), a total order, so every lane ends with the
+//     same winner and the lowest index among equal scores.
+//   * A lane holds 8 actions (12 at 19x19), and a correctly rounded
+//     division costs a branch and a possible slow subroutine that the whole
+//     warp waits on. An action with N = 0, most of a row, needs none (its
+//     score is c_puct * P * sqrt(1 + sum N) bit for bit); a visited one gets
+//     an approximate score with a safe margin first, and only those that
+//     could still be the lane's best take the two exact divisions, on
+//     operands that keep them on the fast path.
+//   * The chosen child id comes from the lane that holds it by one
+//     shuffle, not from a second load. Every lane then knows the next row;
+//     lane 0 writes the path entry, a store nothing waits on.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,167 +59,280 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxLanes = 8;  // lanes per thread: A_pad <= 1024
+constexpr int kWarp = 32;
+constexpr int kChunk = 4 * kWarp;  // actions one float4 per lane covers
+constexpr int kMaxChunks = 8;      // A_pad <= 1024
 constexpr int kNumSec = 8;
 constexpr int kSecN = 0, kSecW = 1, kSecP = 2, kSecChild = 3, kSecMeta = 4;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ bool better(float s, int i, float best, int bi) {
   return s > best || (s == best && i < bi);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    select_kernel(const float* __restrict__ packed, int nn, int a_pad,
-                  int num_actions, int depth_limit, float c_puct,
-                  float forced_k, int* __restrict__ leaf_out,
-                  int* __restrict__ act_out, int* __restrict__ depth_out,
-                  int* __restrict__ pn, int* __restrict__ pa) {
+__device__ __forceinline__ float elem(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// 1 / x within 1 ulp (rcp.approx; subnormal input and output flushed)
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// the action in slot k of `lane`: float4 k / 4 of the lane's, element k % 4
+__device__ __forceinline__ int action(int k, int lane) {
+  return k / 4 * kChunk + 4 * lane + k % 4;
+}
+
+// J = A_pad / 128 float4 chunks per lane and section
+template <int J>
+__global__ void __launch_bounds__(kWarp)
+    select_kernel(const float* __restrict__ packed, int nn, int num_actions,
+                  int depth_limit, float c_puct, float forced_k,
+                  int* __restrict__ leaf_out, int* __restrict__ act_out,
+                  int* __restrict__ depth_out, int* __restrict__ pn,
+                  int* __restrict__ pa) {
+  constexpr int K = 4 * J;   // actions per lane
+  constexpr int a_pad = J * kChunk;
+  constexpr size_t row_len = static_cast<size_t>(kNumSec) * a_pad;
   const int env = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane_id = tid & 31;
-  const int per = a_pad / kThreads;
-
-  __shared__ float s_sum[kWarps];
-  __shared__ float s_best[kWarps];
-  __shared__ int s_bidx[kWarps];
-  __shared__ int s_cur, s_depth, s_act, s_stop;
-
-  if (tid == 0) {
-    s_cur = 0;
-    s_depth = 0;
-    s_act = -1;
-    s_stop = 0;
-  }
-  __syncthreads();
-
-  const size_t row_len = static_cast<size_t>(kNumSec) * a_pad;
+  const int lane = threadIdx.x;
   const float* tree = packed + static_cast<size_t>(env) * nn * row_len;
   int* pn_row = pn + static_cast<size_t>(env) * depth_limit;
   int* pa_row = pa + static_cast<size_t>(env) * depth_limit;
 
-  for (int it = 0; it < depth_limit && !s_stop; ++it) {
-    const int cur = s_cur;
-    const int depth = s_depth;
+  int cur = 0, depth = 0, act = -1;
+  bool stopped = false;
+  for (int it = 0; it < depth_limit; ++it) {
+    // stamp: 0 cur
     const float* row = tree + static_cast<size_t>(cur) * row_len;
-
-    float n[kMaxLanes], w[kMaxLanes], p[kMaxLanes];
-    float part = 0.0f;
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    float4 n4[J], w4[J], p4[J], c4[J];
 #pragma unroll
-    for (int k = 0; k < kMaxLanes; ++k) {
-      if (k < per) {
-        const int a = tid + k * kThreads;
-        n[k] = row[kSecN * a_pad + a];
-        w[k] = row[kSecW * a_pad + a];
-        p[k] = row[kSecP * a_pad + a];
-        part = __fadd_rn(part, n[k]);
-      }
+    for (int j = 0; j < J; ++j) {
+      const int q = j * kWarp + lane;   // float4 index within a section
+      n4[j] = __ldg(row4 + kSecN * a_pad / 4 + q);
+      w4[j] = __ldg(row4 + kSecW * a_pad / 4 + q);
+      p4[j] = __ldg(row4 + kSecP * a_pad / 4 + q);
+      c4[j] = __ldg(row4 + kSecChild * a_pad / 4 + q);
     }
+    const float terminal = __ldg(row + kSecMeta * a_pad);
+    // slot k = 4j + i of this lane is action 128j + 4 lane + i
+    float nv[K], wv[K], pv[K], cv[K];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      part = __fadd_rn(part, __shfl_xor_sync(0xffffffffu, part, off));
-    if (lane_id == 0) s_sum[warp] = part;
-    __syncthreads();
+    for (int k = 0; k < K; ++k) {
+      nv[k] = elem(n4[k / 4], k % 4);
+      wv[k] = elem(w4[k / 4], k % 4);
+      pv[k] = elem(p4[k / 4], k % 4);
+      cv[k] = elem(c4[k / 4], k % 4);
+    }
+
     float total = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kWarps; ++i) total = __fadd_rn(total, s_sum[i]);
+    for (int k = 0; k < K; ++k) total = __fadd_rn(total, nv[k]);
+    // stamp: 1 total
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      total = __fadd_rn(total, __shfl_xor_sync(kFull, total, off));
     const float ns = __fadd_rn(1.0f, total);
     const float sqrt_ns = __fsqrt_rn(ns);
     const float ns_m1 = __fsub_rn(ns, 1.0f);
+    // stamp: 2 sqrt_ns
 
-    float best = -INFINITY;
-    int bidx = a_pad;
+    // Every slot's score: exact where it needs no division (illegal:
+    // -inf; a root child owed forced playouts: +inf, the gate being exact
+    // products; N = 0: Q = 0 and 1 + N = 1, so the plain score is
+    // c_puct * P * sqrt(ns) bit for bit), and for a visited slot an
+    // approximate one, W rcp(N) + x rcp(1 + N) with rcp.approx (1 ulp),
+    // which lies within m = 2^-16 (|q~| + |u~|) + 2^-120 of the exact
+    // score: over 30 times the 4 ulp that the quotients and the two sums
+    // can differ by. A visited slot whose interval reaches the lane's best
+    // lower bound is scored exactly below; the others cannot be the lane's
+    // maximum. A slot with N outside [1, 2^24) (never in a search's tree)
+    // is always scored exactly. All of it branch-free: one warp issues
+    // every instruction of its 8 (12) slots, so per-slot work is the cost.
+    float sv[K], mv[K];
+    int ix[K];
+    float lower = -INFINITY;
 #pragma unroll
-    for (int k = 0; k < kMaxLanes; ++k) {
-      if (k < per) {
-        const int a = tid + k * kThreads;
-        const bool legal = p[k] >= 0.0f && a < num_actions;
-        const float pp = fmaxf(p[k], 0.0f);
-        const float q =
-            n[k] > 0.0f ? __fdiv_rn(w[k], fmaxf(n[k], 1.0f)) : 0.0f;
-        const float u = __fdiv_rn(__fmul_rn(__fmul_rn(c_puct, pp), sqrt_ns),
-                                  __fadd_rn(1.0f, n[k]));
-        float score = legal ? __fadd_rn(q, u) : -INFINITY;
-        const bool forced =
-            legal && depth == 0 && n[k] > 0.0f &&
-            __fmul_rn(n[k], n[k]) < __fmul_rn(__fmul_rn(forced_k, pp), ns_m1);
-        if (forced) score = INFINITY;
-        if (better(score, a, best, bidx)) {
-          best = score;
-          bidx = a;
-        }
-      }
+    for (int k = 0; k < K; ++k) {
+      ix[k] = action(k, lane);
+      const bool legal = pv[k] >= 0.0f && ix[k] < num_actions;
+      const float pp = fmaxf(pv[k], 0.0f);
+      const float x = __fmul_rn(__fmul_rn(c_puct, pp), sqrt_ns);
+      const bool forced =
+          legal && depth == 0 && nv[k] > 0.0f &&
+          __fmul_rn(nv[k], nv[k]) < __fmul_rn(__fmul_rn(forced_k, pp), ns_m1);
+      const bool approx = legal && !forced && nv[k] != 0.0f;
+      const float qa = __fmul_rn(wv[k], rcp_approx(nv[k]));
+      const float ua = __fmul_rn(x, rcp_approx(__fadd_rn(1.0f, nv[k])));
+      const float sa = __fadd_rn(qa, ua);
+      const float ma =
+          __fmaf_rn(0x1p-16f, __fadd_rn(fabsf(qa), fabsf(ua)), 0x1p-120f);
+      const bool sane = nv[k] >= 1.0f && nv[k] < 0x1p24f && ma < INFINITY;
+      sv[k] = !legal ? -INFINITY : forced ? INFINITY : approx ? sa : x;
+      mv[k] = !approx ? 0.0f : sane ? ma : INFINITY;
+      lower = fmaxf(lower, !approx ? sv[k]
+                           : sane  ? __fsub_rd(sa, ma)
+                                   : -INFINITY);
+    }
+    unsigned verify = 0;   // bit k: slot k takes the exact score
+    float s[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const bool exact = mv[k] == 0.0f;
+      verify |= static_cast<unsigned>(
+                    !exact && !(__fadd_ru(sv[k], mv[k]) < lower)) << k;
+      s[k] = exact ? sv[k] : -INFINITY;
     }
 #pragma unroll
+    for (int w = 1; w < K; w *= 2) {
+#pragma unroll
+      for (int k = 0; k + w < K; k += 2 * w) {
+        const bool take = better(s[k + w], ix[k + w], s[k], ix[k]);
+        s[k] = take ? s[k + w] : s[k];
+        ix[k] = take ? ix[k + w] : ix[k];
+      }
+    }
+    float best = s[0];
+    int bidx = ix[0];
+    // stamp: 3 best
+    // The exact scores, two divisions each, in as many rounds as the
+    // busiest lane has slots to verify (one, mostly), each lane taking its
+    // next; a lane with none left scores its slot 0 as -inf.
+    const int rounds = __reduce_max_sync(kFull, __popc(verify));
+    for (int r = 0; r < rounds; ++r) {
+      const bool live = verify != 0;
+      const int ks = live ? __ffs(verify) - 1 : 0;
+      verify &= verify - 1;
+      float nk = nv[0], wk = wv[0], pk = pv[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) {
+        nk = k == ks ? nv[k] : nk;
+        wk = k == ks ? wv[k] : wk;
+        pk = k == ks ? pv[k] : pk;
+      }
+      const int a = action(ks, lane);
+      // The plain formula's two divisions (the slot is legal, no forced
+      // playout). A division whose dividend is zero (or whose lane has no
+      // slot left) leaves the fast path of __fdiv_rn for a slow
+      // subroutine that the whole warp then waits on; a zero over a
+      // positive divisor is that zero, sign and all, so those lanes divide
+      // 1 by 1 instead and keep the zero.
+      const float wq = live && wk != 0.0f ? wk : 1.0f;
+      const float qd = __fdiv_rn(wq, fmaxf(nk, 1.0f));
+      const float q = nk > 0.0f ? (wk == 0.0f ? wk : qd) : 0.0f;
+      const float xu = __fmul_rn(__fmul_rn(c_puct, fmaxf(pk, 0.0f)), sqrt_ns);
+      const float du = __fadd_rn(1.0f, nk);
+      const bool keep = xu == 0.0f && du > 0.0f;   // u = xu exactly
+      const bool divide = live && !keep;
+      const float ud = __fdiv_rn(divide ? xu : 1.0f, divide ? du : 1.0f);
+      const float u = keep ? xu : ud;
+      const float score = live ? __fadd_rn(q, u) : -INFINITY;
+      const bool take = better(score, a, best, bidx);
+      best = take ? score : best;
+      bidx = take ? a : bidx;
+    }
+    // stamp: 4 best
+#pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
+      const float ob = __shfl_xor_sync(kFull, best, off);
+      const int oi = __shfl_xor_sync(kFull, bidx, off);
       if (better(ob, oi, best, bidx)) {
         best = ob;
         bidx = oi;
       }
     }
-    if (lane_id == 0) {
-      s_best[warp] = best;
-      s_bidx[warp] = bidx;
-    }
-    __syncthreads();
+    // stamp: 5 bidx
 
-    if (tid == 0) {
-      float b = s_best[0];
-      int bi = s_bidx[0];
-      for (int i = 1; i < kWarps; ++i) {
-        if (better(s_best[i], s_bidx[i], b, bi)) {
-          b = s_best[i];
-          bi = s_bidx[i];
-        }
-      }
-      const bool revisit = row[kSecMeta * a_pad] > 0.5f || depth >= depth_limit;
-      const int ch = static_cast<int>(row[kSecChild * a_pad + bi]);
-      if (!revisit) {  // depth == it while the descent is live
+    // child[bidx] from the lane that loaded it
+    const int cs = bidx / kChunk * 4 + bidx % 4;
+    float mine = 0.0f;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (k == cs) mine = cv[k];
+    const int ch = static_cast<int>(
+        __shfl_sync(kFull, mine, (bidx % kChunk) / 4));
+    const bool revisit = terminal > 0.5f || depth >= depth_limit;
+    if (!revisit) {  // depth == it while the descent is live
+      if (lane == 0) {
         pn_row[depth] = cur;
-        pa_row[depth] = bi;
-        s_depth = depth + 1;
+        pa_row[depth] = bidx;
       }
-      s_act = revisit ? -1 : bi;
-      if (revisit || ch < 0) {
-        s_stop = 1;
-      } else {
-        s_cur = ch;
-      }
+      ++depth;
     }
-    __syncthreads();
+    act = revisit ? -1 : bidx;
+    // stamp: 6 ch
+    if (revisit || ch < 0) {
+      stopped = true;
+      break;
+    }
+    cur = ch;
   }
 
-  const int final_depth = s_depth;
-  if (tid == 0) {
-    leaf_out[env] = s_cur;
+  if (lane == 0) {
+    leaf_out[env] = cur;
     // a descent that never stopped hit the depth cap: revisit its node
-    act_out[env] = s_stop ? s_act : -1;
-    depth_out[env] = final_depth;
+    act_out[env] = stopped ? act : -1;
+    depth_out[env] = depth;
   }
-  for (int i = final_depth + tid; i < depth_limit; i += kThreads) {
+  for (int i = depth + lane; i < depth_limit; i += kWarp) {
     pn_row[i] = 0;
     pa_row[i] = 0;
   }
 }
 
+template <int J>
+cudaError_t launch(const float* packed, int e, int nn, int num_actions,
+                   int depth_limit, float c_puct, float forced_k, int* leaf,
+                   int* act, int* depth, int* pn, int* pa,
+                   cudaStream_t stream) {
+  select_kernel<J><<<e, kWarp, 0, stream>>>(packed, nn, num_actions,
+                                            depth_limit, c_puct, forced_k,
+                                            leaf, act, depth, pn, pa);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// Returns a cudaError_t (0 on success); the caller has checked shapes,
+// type and contiguity. Launches on `stream` and does not synchronise.
 extern "C" int alphafive_select(const void* packed, int e, int nn, int a_pad,
                                 int num_actions, int depth_limit,
                                 float c_puct, float forced_k, void* leaf,
                                 void* act, void* depth, void* pn, void* pa,
                                 void* stream) {
   if (e == 0) return cudaSuccess;
-  if (a_pad % kThreads != 0 || a_pad > kThreads * kMaxLanes ||
+  if (a_pad % kChunk != 0 || a_pad < kChunk || a_pad > kChunk * kMaxChunks ||
       depth_limit < 1 || depth_limit > nn)
     return cudaErrorInvalidValue;
-  select_kernel<<<e, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(packed), nn, a_pad, num_actions, depth_limit,
-      c_puct, forced_k, static_cast<int*>(leaf), static_cast<int*>(act),
-      static_cast<int*>(depth), static_cast<int*>(pn),
-      static_cast<int*>(pa));
-  return cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(packed) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  const auto* p = static_cast<const float*>(packed);
+  auto* l = static_cast<int*>(leaf);
+  auto* a = static_cast<int*>(act);
+  auto* d = static_cast<int*>(depth);
+  auto* n = static_cast<int*>(pn);
+  auto* x = static_cast<int*>(pa);
+  auto* s = static_cast<cudaStream_t>(stream);
+  switch (a_pad / kChunk) {
+    case 1: return launch<1>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
+    case 2: return launch<2>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
+    case 3: return launch<3>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
+    case 4: return launch<4>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
+    case 5: return launch<5>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
+    case 6: return launch<6>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
+    case 7: return launch<7>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
+    default: return launch<8>(p, e, nn, num_actions, depth_limit, c_puct,
+                              forced_k, l, a, d, n, x, s);
+  }
 }

@@ -17,7 +17,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
@@ -26,7 +25,6 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
-build_seconds = None  # wall time of the build (or load) in this process
 build_log = ""        # nvcc's output, including ptxas's register report
 
 
@@ -80,10 +78,9 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built first if this source hash has none."""
-    global _lib, build_seconds
+    global _lib
     if _lib is not None:
         return _lib
-    t0 = time.time()
     out_dir = os.path.join(BUILD_ROOT, _digest())
     so = os.path.join(out_dir, "libalphafive_kernels.so")
     if not os.path.exists(so):
@@ -99,5 +96,4 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     _bind(lib)
     _lib = lib
-    build_seconds = time.time() - t0
     return lib

@@ -15,8 +15,9 @@ with ``A_pad`` the action count rounded up to 128, the TPU kernel's
 layout, kept so both packages share one interface. From each env's root
 the descent takes the PUCT argmax (ties to the lowest action; the root
 forced-playout gate scores +inf) until it reaches an unexpanded edge, a
-terminal node or the depth cap. ``select_batch`` launches the
-hand-written kernel ``csrc/select.cu`` on CUDA tensors and runs
+terminal node or the depth cap. ``select_batch`` checks the tree against
+the kernel's contract on every device, then launches the hand-written
+kernel ``csrc/select.cu`` on CUDA tensors and runs
 ``select_batch_reference`` on CPU tensors; on any other device it raises.
 The two are bit-equal: one flipped argmax would change the visit counts.
 """
@@ -107,6 +108,8 @@ def _check(packed: torch.Tensor, num_actions: int, depth_limit: int):
         raise ValueError("child ids are exact in f32 only below 2^24 nodes")
     if not packed.is_contiguous():
         raise ValueError("packed must be contiguous")
+    if packed.data_ptr() % 16:   # the kernel loads 16 B per lane
+        raise ValueError("packed must be 16-byte aligned")
 
 
 def select_batch(packed: torch.Tensor, num_actions: int, depth_limit: int,
@@ -116,12 +119,12 @@ def select_batch(packed: torch.Tensor, num_actions: int, depth_limit: int,
     revisit), depth i32[E], path nodes i32[E, D], path actions i32[E, D]),
     path entries zero beyond each env's depth."""
     global select_launches
+    _check(packed, num_actions, depth_limit)
     if packed.device.type == "cpu":
         return select_batch_reference(packed, num_actions, depth_limit,
                                       c_puct, forced_k)
     if packed.device.type != "cuda":
         raise RuntimeError(f"no select kernel for device {packed.device}")
-    _check(packed, num_actions, depth_limit)
     from alphafive_tpu_torch.ops import _build
     lib = _build.load()
     e, nn, _, a_pad = packed.shape

@@ -23,10 +23,22 @@ JSON line; any failure raises. The last lines are the kernel table, the
 card's name and power limit from nvidia-smi, and ``{"ok": true, "device":
 {...}}``. There is no CPU path: without CUDA the script exits non-zero
 before printing any result. Imports nothing of JAX.
+
+A kernel row's ``ms`` is device time per launch: 20 calls of the wrapper
+captured into one CUDA graph, median of 5 timed replays
+(``benchmarks/timing.py``); a call that cannot be captured fails the run.
+``host_us_per_call`` beside it is the wall time per call of 400
+unsynchronised calls, what a loop that launches the kernel once per step
+pays. The plain versions wait on the host inside (the plain descent syncs
+once per step), so ``plain_ms`` stays eager CUDA-event time. Each select
+row also gives ``latency_bound_ms``: the launch floor plus its longest
+descent's steps times one L2 round trip, both measured here by
+``benchmarks/select_profile.py``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -42,6 +54,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from alphafive_tpu_torch.benchmarks import select_profile  # noqa: E402
+from alphafive_tpu_torch.benchmarks import timing  # noqa: E402
 from alphafive_tpu_torch.ops import _build, resblock as rb  # noqa: E402
 from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 
@@ -72,14 +86,15 @@ FORWARDS_PER_PLY = 400 // 8 + 1   # 50 passes of 8 lanes + the root
 # packed-tree search: 400 sims per move, descents capped at 64 edges
 SIMS, DEPTH = 400, 64
 # select kernel vs plain: (bundle, envs) of the searches whose trees are
-# compared; the first two are the 15×15 shapes, the last a 19×19 tree
+# compared; the first two are the 15×15 shapes, the last a 19×19 tree. The
+# first tree's env 0 alone is compared too: E = 1, the shape cli eval
+# launches
 SELECT_TREES = [("15x15", 16), ("15x15", 256), ("19x19", 16)]
 FORCED_K = 2.0   # the forced-playout gate's k in the second comparison
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor cores, f32 outside the tensor cores, device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-WINDOWS, ITERS = 5, 20   # timing: median of 5 CUDA-event windows of 20 calls
 # cli eval: two games against the rollout anchor at a small budget
 EVAL_ARGV = ["eval", "--preset", "chip_15x15",
              "--set", "mcts.select_impl=pallas",
@@ -96,26 +111,6 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn) -> tuple[float, float]:
-    """Median ms per call over WINDOWS CUDA-event windows of ITERS calls
-    each (after 3 warm-up calls), and the spread (max - min) of the
-    windows."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(WINDOWS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / ITERS)
-    times.sort()
-    return times[len(times) // 2], times[-1] - times[0]
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
@@ -148,11 +143,34 @@ def phase_device():
 
 
 def phase_build():
-    _build.load()
+    """Both libraries at once: the kernels' and the instrumented copy of
+    csrc/select.cu that measures the select kernel's latency bound."""
+    t0 = time.time()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        main = pool.submit(_build.load)
+        profile = pool.submit(select_profile.build)
+        main.result()
+        plib = profile.result()
     regs = [line.strip() for line in _build.build_log.splitlines()
             if any(k in line for k in ("entry function", "registers",
                                        "spill"))]
-    emit("build", seconds=_build.build_seconds, ptxas=regs)
+    emit("build", seconds=time.time() - t0, ptxas=regs)
+    return plib
+
+
+def phase_select_latency(plib):
+    """The two measured inputs of the select kernel's latency bound."""
+    inputs = select_profile.latency_inputs(plib)
+    emit("select_latency", **inputs, nvidia_smi=nvidia_smi())
+    return inputs
+
+
+def timed(row: dict, kernel, plain) -> None:
+    """Device ms of the kernel's wrapper (graph replay), its host µs per
+    call, and the plain version's eager ms, into `row`."""
+    row["ms"], row["ms_spread"] = timing.graph_ms(kernel)
+    row["host_us_per_call"] = timing.host_us_per_call(kernel)
+    row["plain_ms"], row["plain_ms_spread"] = timing.eager_ms(plain)
 
 
 def phase_kernel_vs_plain():
@@ -181,12 +199,11 @@ def phase_kernel_vs_plain():
         if not worst <= atol:
             emit("kernel_vs_plain", **row, ok=False)
             raise AssertionError(f"resblock kernel disagrees: {row}")
-        row["ms"], row["ms_spread"] = cuda_ms(
-            lambda: rb.fused_resblock(x, w1, b1, w2, b2))
-        row["plain_ms"], row["plain_ms_spread"] = cuda_ms(
-            lambda: rb.fused_resblock_reference(x, w1, b1, w2, b2))
-        torch.backends.cudnn.benchmark = True   # cuDNN's best algorithm
-        row["library_ms"], row["library_ms_spread"] = cuda_ms(
+        timed(row, lambda: rb.fused_resblock(x, w1, b1, w2, b2),
+              lambda: rb.fused_resblock_reference(x, w1, b1, w2, b2))
+        # cuDNN's best algorithm, picked in the warm-up before the capture
+        torch.backends.cudnn.benchmark = True
+        row["library_ms"], row["library_ms_spread"] = timing.graph_ms(
             library_pair(x, w1, w2))
         torch.backends.cudnn.benchmark = False
         item = x.element_size()
@@ -312,57 +329,70 @@ def packed_search(bundle: str, envs: int, seed: int, select=None):
     return res, tree, time.perf_counter() - t0, (cfg, evaluate, st, mcts)
 
 
-def phase_select_kernel_vs_plain():
+def phase_select_kernel_vs_plain(latency: dict):
     """The select kernel against its plain version on the trees 400-sim
-    searches left, with forced_k 0 and > 0 and one terminal root: all five
-    outputs exactly equal."""
+    searches left (and on env 0 of the first alone, E = 1), with forced_k
+    0 and > 0 and terminal roots: all five outputs exactly equal."""
     rows = []
     for i, (bundle, envs) in enumerate(SELECT_TREES):
         res, tree, _, (cfg, *_) = packed_search(bundle, envs, seed=10 + i)
-        a = cfg.env.num_actions
-        cases = [("tree", tree.packed, 0.0), ("tree", tree.packed, FORCED_K)]
+        trees = [(envs, tree.packed)]
         if i == 0:
-            done_root = tree.packed.clone()
-            done_root[::3, 0, sel.SEC_META, 0] = 1.0
-            cases.append(("terminal_roots", done_root, 0.0))
-        base_act = None
-        for kind, packed, fk in cases:
-            got = sel.select_batch(packed, a, DEPTH, 5.0, fk)
-            torch.cuda.synchronize()
-            ref = sel.select_batch_reference(packed, a, DEPTH, 5.0, fk)
-            equal = all(torch.equal(g, r) for g, r in zip(got, ref))
-            if base_act is None:
-                base_act = ref[1]
-            row = dict(bundle=bundle, envs=envs, a_pad=packed.shape[-1],
-                       nodes=packed.shape[1], depth_limit=DEPTH,
-                       forced_k=fk, case=kind, equal=equal,
-                       max_abs_err=max((g - r).abs().max().item()
-                                       for g, r in zip(got, ref)),
-                       mean_depth=ref[2].float().mean().item(),
-                       revisits=int((ref[1] < 0).sum()),
-                       acts_changed_vs_k0=int((ref[1] != base_act).sum()))
-            if not equal:
-                emit("select_kernel_vs_plain", **row, ok=False)
-                raise AssertionError(f"select kernel disagrees: {row}")
-            row["ms"], row["ms_spread"] = cuda_ms(
-                lambda: sel.select_batch(packed, a, DEPTH, 5.0, fk))
-            row["plain_ms"], row["plain_ms_spread"] = cuda_ms(
-                lambda: sel.select_batch_reference(packed, a, DEPTH, 5.0,
-                                                   fk))
-            # this data's reads: sections N, W, P of each row on the path
-            # plus its child id and terminal flag; writes: the outputs
-            steps = int((ref[2].long() + 1).sum())
-            a_pad = packed.shape[-1]
-            row["bound_ms"], row["bound_by"] = bound(
-                steps * 3 * a_pad * 10, steps * (3 * a_pad + 2) * 4
-                + sum(t.numel() * 4 for t in ref), torch.float32)
-            row["share_of_bound"] = row["bound_ms"] / row["ms"]
-            row["library_ms"] = None   # no PyTorch call computes it
-            emit("select_kernel_vs_plain", **row, ok=True)
-            rows.append(row)
+            trees.append((1, tree.packed[:1].contiguous()))
+        for e, packed in trees:
+            rows += select_cases(bundle, e, packed, cfg.env.num_actions,
+                                 latency, terminal=i == 0)
         if (res.visits.sum(-1) != SIMS).any():
             raise AssertionError(f"{bundle}: a root's visits do not sum to "
                                  f"{SIMS}")
+    return rows
+
+
+def select_cases(bundle, envs, tree, a, latency, terminal):
+    """One tree's rows: forced_k 0 and FORCED_K (and, with `terminal`,
+    every third root made terminal), each checked, timed and bounded."""
+    cases = [("tree", tree, 0.0), ("tree", tree, FORCED_K)]
+    if terminal:
+        done_root = tree.clone()
+        done_root[::3, 0, sel.SEC_META, 0] = 1.0
+        cases.append(("terminal_roots", done_root, 0.0))
+    rows, base_act = [], None
+    for kind, packed, fk in cases:
+        got = sel.select_batch(packed, a, DEPTH, 5.0, fk)
+        torch.cuda.synchronize()
+        ref = sel.select_batch_reference(packed, a, DEPTH, 5.0, fk)
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+        if base_act is None:
+            base_act = ref[1]
+        steps = (ref[2].long() + 1).clamp(max=DEPTH)   # loop trips per env
+        row = dict(bundle=bundle, envs=envs, a_pad=packed.shape[-1],
+                   nodes=packed.shape[1], depth_limit=DEPTH,
+                   forced_k=fk, case=kind, equal=equal,
+                   max_abs_err=max((g - r).abs().max().item()
+                                   for g, r in zip(got, ref)),
+                   mean_depth=ref[2].float().mean().item(),
+                   max_steps=int(steps.max()),
+                   revisits=int((ref[1] < 0).sum()),
+                   acts_changed_vs_k0=int((ref[1] != base_act).sum()))
+        if not equal:
+            emit("select_kernel_vs_plain", **row, ok=False)
+            raise AssertionError(f"select kernel disagrees: {row}")
+        timed(row, lambda: sel.select_batch(packed, a, DEPTH, 5.0, fk),
+              lambda: sel.select_batch_reference(packed, a, DEPTH, 5.0, fk))
+        # this data's reads: sections N, W, P of each row on the path
+        # plus its child id and terminal flag; writes: the outputs
+        a_pad = packed.shape[-1]
+        n_steps = int(steps.sum())
+        row["bound_ms"], row["bound_by"] = bound(
+            n_steps * 3 * a_pad * 10, n_steps * (3 * a_pad + 2) * 4
+            + sum(t.numel() * 4 for t in ref), torch.float32)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["latency_bound_ms"] = select_profile.latency_bound_ms(
+            latency, row["max_steps"])
+        row["share_of_latency_bound"] = row["latency_bound_ms"] / row["ms"]
+        row["library_ms"] = None   # no PyTorch call computes it
+        emit("select_kernel_vs_plain", **row, ok=True)
+        rows.append(row)
     return rows
 
 
@@ -472,15 +502,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
     card = phase_device()
-    phase_build()
+    plib = phase_build()
+    latency = phase_select_latency(plib)
     rows = phase_kernel_vs_plain()
     params, stats, saved_cfg = phase_bundle()
     rb_launches = phase_selfplay(params, stats, saved_cfg, card)
-    sel_rows = phase_select_kernel_vs_plain()
+    sel_rows = phase_select_kernel_vs_plain(latency)
     phase_search_packed(card)
     sel_launches = phase_eval(card)
     emit("total", seconds=time.time() - t0)
-    main_row, sel_row = rows[0], sel_rows[0]
+    # the resblock's self-play shape; the select kernel's cli eval shape
+    main_row = rows[0]
+    sel_row = next(r for r in sel_rows if r["envs"] == 1
+                   and r["case"] == "tree" and r["forced_k"] == 0.0)
     print(json.dumps({"kernels": [{
         "name": "fused_resblock", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
@@ -488,14 +522,17 @@ def main() -> int:
         "launches": rb_launches, "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}, {
+        "library_ms": main_row["library_ms"],
+        "host_us_per_call": main_row["host_us_per_call"]}, {
         "name": "select_batch", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/select.cu",
         "replaces": "alphafive_tpu/ops/pallas_select.py:189",
         "launches": sel_launches, "max_abs_err": sel_row["max_abs_err"],
         "ms": sel_row["ms"], "plain_ms": sel_row["plain_ms"],
         "bound_ms": sel_row["bound_ms"], "bound_by": sel_row["bound_by"],
-        "library_ms": None}]}),
+        "library_ms": None, "host_us_per_call": sel_row["host_us_per_call"],
+        "latency_bound_ms": sel_row["latency_bound_ms"],
+        "share_of_latency_bound": sel_row["share_of_latency_bound"]}]}),
         flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
