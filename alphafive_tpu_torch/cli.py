@@ -206,13 +206,11 @@ def _render(board, size: int) -> str:
 def _cmd_play(cfg, args, device) -> None:
     """Console human-vs-AI on one env of the vector engine."""
     from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.mcts.gumbel import run_gumbel_mcts
     from alphafive_tpu_torch.mcts.search import run_mcts
     from alphafive_tpu_torch.models.evaluator import (net_evaluator,
                                                       rollout_evaluator)
 
-    if cfg.mcts.root_selection == "gumbel":
-        raise NotImplementedError("the Gumbel root search is not ported "
-                                  "yet: ROADMAP Queue 1 item 8")
     gen = torch.Generator(device=device).manual_seed(0)
     if args.opponent == "pure":
         evaluate = rollout_evaluator(cfg.env, generator=gen)
@@ -244,9 +242,15 @@ def _cmd_play(cfg, args, device) -> None:
                 print("invalid move, try again (e.g. '7 7')")
                 continue
         else:
-            res = run_mcts(cfg.env, cfg.mcts, evaluate, st, gen,
-                           num_simulations=sims, add_noise=False)
-            a = int(res.visits[0].argmax())
+            if cfg.mcts.root_selection == "gumbel":
+                # the halving winner at g = 0 (deterministic)
+                res = run_gumbel_mcts(cfg.env, cfg.mcts, evaluate, st, gen,
+                                      num_simulations=sims, add_noise=False)
+                a = int(res.action[0])
+            else:
+                res = run_mcts(cfg.env, cfg.mcts, evaluate, st, gen,
+                               num_simulations=sims, add_noise=False)
+                a = int(res.visits[0].argmax())
             print(f"AI plays {divmod(a, size)} "
                   f"(value {float(res.root_value[0]):+.2f})")
         st = vector.step(cfg.env, st,

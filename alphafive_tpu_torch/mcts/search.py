@@ -6,8 +6,10 @@ to the branch-capped search (``mcts/search_capped.py``, the self-play
 path); with ``select_impl="pallas"`` to the packed-tree search whose
 descent is the select kernel (``mcts/search_packed.py``); otherwise to the
 full-width search below, over action-indexed edge arrays ``[E, NN, A]``.
-Semantics are the JAX package's, step for step; the port differs only in
-mechanics:
+The Gumbel root search (``mcts/gumbel.py``) reuses its descent
+(``_select_one``'s ``root_action`` lanes) and the rest of its pass
+(``_expand_and_backup``). Semantics are the JAX package's, step for step;
+the port differs only in mechanics:
 
 * The tree is updated in place (JAX rebuilds immutable arrays); in "path"
   virtual mode the virtual visits go straight into the visit array, which
@@ -113,35 +115,46 @@ def _puct_scores_n(nf, w_row, p_row, legal, c_puct: float):
 
 def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
                 c_puct: float, depth_limit: int, w_inv_scale: float = 1.0,
-                forced_k: float = 0.0):
+                forced_k: float = 0.0, root_action=None):
     """PUCT descent of every env from its root (JAX's ``_select_one``,
     there vmapped over envs). `vroot` [E, A] holds the pass's virtual
-    root visits. A descent stops at the first missing child (to expand),
-    at a terminal node or at the depth cap (the latter two: action -1, a
-    leaf revisit). The path records every traversed edge, including the
-    stopping edge when expanding; unused slots stay (0, 0).
+    root visits (None: none). A descent stops at the first missing child
+    (to expand), at a terminal node or at the depth cap (the latter two:
+    action -1, a leaf revisit). The path records every traversed edge,
+    including the stopping edge when expanding; unused slots stay (0, 0).
 
-    Returns (leaf_parent [E], action [E], depth [E], path_nodes [E, D],
-    path_actions [E, D]), all int64."""
+    `root_action` [E, L] runs L lanes per env over the same tree (no
+    virtual visits: `vroot` must be None), lane j's first edge pinned to
+    root_action[:, j]: the Gumbel search's halving lanes (JAX's hook,
+    vmapped over lanes there). The lanes are E·L rows of one loop.
+
+    Returns (leaf_parent, action, depth, path_nodes, path_actions), all
+    int64, leading dims [E] (or [E, L] with `root_action`); paths add
+    [D]."""
     d = depth_limit
     e = tree_done.shape[0]
     dev = tree_done.device
-    earange = torch.arange(e, device=dev)
-    cur = torch.zeros(e, dtype=torch.long, device=dev)
-    act = torch.full((e,), -1, dtype=torch.long, device=dev)
-    depth = torch.zeros(e, dtype=torch.long, device=dev)
-    stopped = torch.zeros(e, dtype=torch.bool, device=dev)
-    pn = torch.zeros((e, d), dtype=torch.long, device=dev)
-    pa = torch.zeros((e, d), dtype=torch.long, device=dev)
+    lanes = 1 if root_action is None else root_action.shape[1]
+    rows = torch.arange(e, device=dev).repeat_interleave(lanes)  # env of row
+    r = e * lanes
+    rarange = torch.arange(r, device=dev)
+    pinned = None if root_action is None else root_action.reshape(r).long()
+    cur = torch.zeros(r, dtype=torch.long, device=dev)
+    act = torch.full((r,), -1, dtype=torch.long, device=dev)
+    depth = torch.zeros(r, dtype=torch.long, device=dev)
+    stopped = torch.zeros(r, dtype=torch.bool, device=dev)
+    pn = torch.zeros((r, d), dtype=torch.long, device=dev)
+    pa = torch.zeros((r, d), dtype=torch.long, device=dev)
     while not bool(stopped.all()):
         live = ~stopped
-        revisit = tree_done[earange, cur] | (depth >= d)
-        p_signed = tree_p[earange, cur].float()
+        revisit = tree_done[rows, cur] | (depth >= d)
+        p_signed = tree_p[rows, cur].float()
         legal = p_signed >= 0
-        w_row = tree_w[earange, cur].float() * w_inv_scale
+        w_row = tree_w[rows, cur].float() * w_inv_scale
         p_row = p_signed.clamp(min=0.0)
-        nf_real = tree_n[earange, cur].float()
-        nf = torch.where((cur == 0)[:, None], nf_real + vroot, nf_real)
+        nf_real = tree_n[rows, cur].float()
+        nf = (nf_real if vroot is None
+              else torch.where((cur == 0)[:, None], nf_real + vroot, nf_real))
         score = _puct_scores_n(nf, w_row, p_row, legal, c_puct)
         # forced-playout gate on REAL visits (see the JAX docstring)
         forced = (legal & (depth == 0)[:, None] & (nf_real > 0)
@@ -149,17 +162,22 @@ def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
                      < forced_k * p_row * nf_real.sum(dim=-1, keepdim=True)))
         score = torch.where(forced, float("inf"), score)
         a = score.argmax(dim=-1)
-        ch = tree_child[earange, cur, a].long()
+        if pinned is not None:  # Gumbel lane: pin the root edge
+            a = torch.where(depth == 0, pinned, a)
+        ch = tree_child[rows, cur, a].long()
         stop = revisit | (ch < 0)
         rec = live & ~revisit
         slot = depth.clamp(max=d - 1)
-        pn[earange, slot] = torch.where(rec, cur, pn[earange, slot])
-        pa[earange, slot] = torch.where(rec, a, pa[earange, slot])
+        pn[rarange, slot] = torch.where(rec, cur, pn[rarange, slot])
+        pa[rarange, slot] = torch.where(rec, a, pa[rarange, slot])
         depth = depth + rec.long()
         act = torch.where(live, torch.where(revisit, -1, a), act)
         cur = torch.where(live & ~stop, ch, cur)
         stopped = stopped | stop
-    return cur, act, depth, pn, pa
+    out = (cur, act, depth, pn, pa)
+    if root_action is None:
+        return out
+    return tuple(x.reshape((e, lanes) + x.shape[1:]) for x in out)
 
 
 def _gather_env(tree, idx: torch.Tensor) -> EnvState:
@@ -202,9 +220,8 @@ def _run_pass(env_cfg, evaluate, tree: Tree, *, base: int, lb: int, d: int,
               path_virtual: bool, fixed_w: bool, w_scale: float,
               prior_dtype, c_puct: float, forced_k: float) -> None:
     """One leaf-parallel pass: `lb` descents per env with virtual visits
-    between them, one batched env.step and net forward over the E·lb
-    leaves, dedup expansion at node ids [base, base + lb), one backup
-    scatter. Updates `tree` in place."""
+    between them, then ``_expand_and_backup`` of the E·lb leaves at node
+    ids [base, base + lb). Updates `tree` in place."""
     e, _, a = tree.n.shape
     dev = tree.n.device
     earange = torch.arange(e, device=dev)
@@ -222,7 +239,27 @@ def _run_pass(env_cfg, evaluate, tree: Tree, *, base: int, lb: int, d: int,
         else:             # +1 on the first edge, for this pass only
             vroot[earange, pa[:, 0]] += (depth > 0).float()
         lanes.append((lp, act, depth, pn, pa))
-    lps, acts, deps, pns, pas = (torch.stack(x, dim=1) for x in zip(*lanes))
+    # in path mode the visits landed at select time
+    _expand_and_backup(env_cfg, evaluate, tree,
+                       *(torch.stack(x, dim=1) for x in zip(*lanes)),
+                       base=base, fixed_w=fixed_w, w_scale=w_scale,
+                       prior_dtype=prior_dtype, add_visits=not path_virtual)
+
+
+def _expand_and_backup(env_cfg, evaluate, tree: Tree, lps, acts, deps, pns,
+                       pas, *, base: int, fixed_w: bool, w_scale: float,
+                       prior_dtype, add_visits: bool) -> None:
+    """The rest of a pass, after the descents of its `lb` lanes ([E, lb]
+    leaf parents, actions, depths and [E, lb, D] paths): one batched
+    env.step and net forward over the E·lb leaves, dedup expansion at
+    node ids [base, base + lb), one backup scatter (visits too with
+    `add_visits`). Shared by ``_run_pass`` and the Gumbel search's
+    passes. Updates `tree` in place."""
+    e, lb = lps.shape
+    a = tree.n.shape[2]
+    dev = tree.n.device
+    earange = torch.arange(e, device=dev)
+    dn = torch.arange(pns.shape[2], device=dev)
 
     # revisit lanes (action -1): terminal node or live node at the depth
     # cap — no expansion, back up the leaf's own value
@@ -270,7 +307,7 @@ def _run_pass(env_cfg, evaluate, tree: Tree, *, base: int, lb: int, d: int,
         vals = torch.round(vals * w_scale).int()
     idx = (earange[:, None, None].expand_as(pns), pns, pas)
     tree.w.index_put_(idx, vals, accumulate=True)
-    if not path_virtual:  # in path mode the visits landed at select time
+    if add_visits:
         tree.n.index_put_(idx, on_path.int(), accumulate=True)
 
 

@@ -22,8 +22,9 @@ package's, step for step; the port differs only in mechanics:
   the value field is added as ``w * 65536``, the same two's-complement
   bits as JAX's shift.
 
-Not ported: deferred backup (``backup_interval=2`` raises) and the Gumbel
-search's ``forced_slots`` hook.
+The Gumbel search over this tree (``mcts/gumbel.py``) forces each lane's
+first step onto its root slot through ``forced_slots``. Not ported:
+deferred backup (``backup_interval=2`` raises).
 """
 
 from __future__ import annotations
@@ -70,7 +71,8 @@ def _top_c(p_signed: torch.Tensor, c: int, prior_dtype: torch.dtype):
 
 
 def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
-                  depth_limit, w_inv_scale, forced_k, num_slots, packed, lb):
+                  depth_limit, w_inv_scale, forced_k, num_slots, packed, lb,
+                  forced_slots=None):
     """Wavefront PUCT descent of all ``lb`` lanes of a pass.
 
     Lane j starts at step j and every active lane takes one step per
@@ -78,7 +80,9 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
     visits are computed from the lanes' recorded paths: every node has a
     unique depth, so lane j standing at ``cur`` can only meet another
     lane's path entry at index k - j (see the JAX docstring for the
-    argument). The tree is read-only here.
+    argument). The tree is read-only here. `forced_slots` [E, LB] pins
+    lane j's first step to root slot forced_slots[:, j] (the Gumbel
+    search's halving lanes).
 
     Returns (lps [E,LB] leaf-parent nodes, slots [E,LB] chosen slot or -1
     for revisits, deps [E,LB] path lengths, ppas [E,LB,D] packed
@@ -128,6 +132,8 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
                      < forced_k * p_row * nf_real.sum(dim=-1, keepdim=True)))
         score = torch.where(forced, float("inf"), score)
         s = score.argmax(dim=-1)                                # [E,LB]
+        if forced_slots is not None:  # Gumbel lane: pin the root slot
+            s = torch.where(depth == 0, forced_slots, s)
         ch = tree_child[eidx, cur, s].long()
         stop_now = revisit | (ch < 0)
         rec = active & ~revisit
@@ -143,15 +149,19 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
 
 
 def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
-              packed, w_scale, prior_dtype, c_puct, forced_k) -> None:
+              packed, w_scale, prior_dtype, c_puct, forced_k,
+              forced_slots=None) -> None:
     """One leaf-parallel pass: wavefront select of `lb` lanes, batched
     env.step + net forward, dedup expansion at node ids [base, base + lb),
-    backup scatter. Updates `tree` in place."""
+    backup scatter. Shared by ``run_mcts_capped`` and the Gumbel search,
+    which pins each lane's root slot with `forced_slots` [E, lb]. Updates
+    `tree` in place."""
     e = tree.node_done.shape[0]
     dev = tree.node_done.device
     lps, slots, deps, ppas = _select_lanes(
         tree.n, tree.n if packed else tree.w, tree.p, tree.child,
-        tree.node_done, c_puct, d, 1.0 / w_scale, forced_k, c, packed, lb)
+        tree.node_done, c_puct, d, 1.0 / w_scale, forced_k, c, packed, lb,
+        forced_slots)
     pns, pas = ppas >> 8, ppas & 255                            # [E,lb,D]
 
     is_revisit = slots < 0
@@ -213,6 +223,30 @@ def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
         tree.w.index_put_(idx, vals, accumulate=True)
 
 
+def _capped_tree_init(state: EnvState, nn: int, c: int, packed: bool,
+                      prior_dtype) -> CappedTree:
+    """An empty [E, nn, C] slot tree on the device of `state`, whose root
+    (node 0) is `state`; the root's slots are the caller's to fill."""
+    e, a = state.board.shape
+    z = lambda shape, dt, fill=0: torch.full(shape, fill, dtype=dt,
+                                             device=state.board.device)
+    tree = CappedTree(
+        n=z((e, nn, c), torch.int32),
+        w=None if packed else z((e, nn, c), torch.float32),
+        p=z((e, nn, c), prior_dtype, -1.0),
+        child=z((e, nn, c), torch.int32, -1),
+        cand_act=z((e, nn, c), torch.int16),
+        node_done=z((e, nn), torch.bool),
+        node_winner=z((e, nn), torch.int8),
+        node_to_play=z((e, nn), torch.int8, 1),
+        node_last=z((e, nn), torch.int32, -1),
+        node_count=z((e, nn), torch.int32),
+        node_board=z((e, nn, a), torch.int8),
+    )
+    _write_nodes(tree, 0, state)
+    return tree
+
+
 def _stages(passes: int, d: int):
     """(first pass, end pass, path-depth cap) of the depth-staged loop: a
     descent in pass p records at most p + 1 edges, so early passes run with
@@ -257,22 +291,7 @@ def run_mcts_capped(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
         raise ValueError("tree too large: nodes <= 32767 and branch_cap "
                          "<= 256 (paths pack node << 8 | slot)")
 
-    z = lambda shape, dt, fill=0: torch.full(shape, fill, dtype=dt,
-                                             device=dev)
-    tree = CappedTree(
-        n=z((e, nn, c), torch.int32),
-        w=None if packed else z((e, nn, c), torch.float32),
-        p=z((e, nn, c), prior_dtype, -1.0),
-        child=z((e, nn, c), torch.int32, -1),
-        cand_act=z((e, nn, c), torch.int16),
-        node_done=z((e, nn), torch.bool),
-        node_winner=z((e, nn), torch.int8),
-        node_to_play=z((e, nn), torch.int8, 1),
-        node_last=z((e, nn), torch.int32, -1),
-        node_count=z((e, nn), torch.int32),
-        node_board=z((e, nn, a), torch.int8),
-    )
-    _write_nodes(tree, 0, state)
+    tree = _capped_tree_init(state, nn, c, packed, prior_dtype)
 
     root_logits, _ = evaluate(state.board, state.to_play, state.last_move)
     root_legal = state.board == 0

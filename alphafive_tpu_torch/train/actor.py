@@ -7,8 +7,10 @@ first ``temperature_moves`` plies of a game, greedy after) and steps.
 over the chunk. The JAX ``lax.scan``s are Python loops here.
 
 Playout cap randomization (``small_simulations > 0``) flips one coin per
-ply, as in the JAX package. The Gumbel root (``root_selection="gumbel"``)
-is not ported yet and raises.
+ply, as in the JAX package. With the Gumbel root (``root_selection=
+"gumbel"``, ``mcts/gumbel.py``) every search samples Gumbel noise, cheap
+PCR plies too; the move is the halving winner and π is the improved
+policy π', with no temperature and no forced-visit pruning.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
-from alphafive_tpu_torch.mcts import search
+from alphafive_tpu_torch.mcts import gumbel, search
 
 
 def prune_forced_visits(visits: torch.Tensor, priors: torch.Tensor,
@@ -90,11 +92,9 @@ def selfplay_record(
     returning the raw recordings (z not yet resolved — see resolve_chunk).
     `generator` lives on the device of `state` and drives the noise, the
     PCR coin and the move sampling. `observe(state, result, action)`, when
-    given, sees each ply's searched position, SearchResult and move."""
-    if mcts_cfg.root_selection == "gumbel":
-        raise NotImplementedError(
-            "the Gumbel root search is not ported yet: ROADMAP Queue 1 "
-            "item 8")
+    given, sees each ply's searched position, result (a SearchResult, or
+    a GumbelResult with the Gumbel root) and move."""
+    use_gumbel = mcts_cfg.root_selection == "gumbel"
     small = int(mcts_cfg.small_simulations or 0)
     full_budget = int(num_simulations or mcts_cfg.num_simulations)
     use_pcr = 0 < small < full_budget
@@ -108,17 +108,24 @@ def selfplay_record(
             # one coin per lockstep ply; only full searches carry noise
             coin = torch.rand((), generator=generator, device=dev)
             full = bool(coin < mcts_cfg.full_sim_fraction)
-        res = search.run_mcts(
-            env_cfg, mcts_cfg, evaluate, state, generator,
-            add_noise=full,
-            num_simulations=num_simulations if full else small)
-        target = prune_forced_visits(res.visits, res.priors,
-                                     float(mcts_cfg.forced_playouts_k))
-        pi_target = target / target.sum(-1, keepdim=True).clamp(min=1.0)
-        greedy = state.move_count >= mcts_cfg.temperature_moves
-        pi_act = search.pi_from_visits(
-            res.visits, torch.ones(e, device=dev), greedy)
-        action = search.sample_actions(generator, pi_act)
+        sims = num_simulations if full else small
+        if use_gumbel:
+            # Gumbel noise is the exploration, on cheap plies too
+            res = gumbel.run_gumbel_mcts(env_cfg, mcts_cfg, evaluate, state,
+                                         generator, num_simulations=sims,
+                                         add_noise=True)
+            pi_target, action = res.pi_target, res.action
+        else:
+            res = search.run_mcts(env_cfg, mcts_cfg, evaluate, state,
+                                  generator, add_noise=full,
+                                  num_simulations=sims)
+            target = prune_forced_visits(res.visits, res.priors,
+                                         float(mcts_cfg.forced_playouts_k))
+            pi_target = target / target.sum(-1, keepdim=True).clamp(min=1.0)
+            greedy = state.move_count >= mcts_cfg.temperature_moves
+            pi_act = search.pi_from_visits(
+                res.visits, torch.ones(e, device=dev), greedy)
+            action = search.sample_actions(generator, pi_act)
         if observe is not None:
             observe(state, res, action)
         nxt = vector.step(env_cfg, state, action)

@@ -3,7 +3,8 @@
 
 All games of one colour assignment run batched; both players are array-MCTS
 searches (the pure-MCTS anchor is the same search with the rollout
-evaluator), searching greedily (no noise, argmax of the visits). Eval games
+evaluator), searching greedily (no noise; the argmax of the visits, or a
+Gumbel root's halving winner). Eval games
 never auto-reset, so every live env has the same ply parity and "whose
 turn" is a Python ``if`` on the ply index (a ``lax.cond`` in JAX). Finished
 envs are still searched and then stepped as a no-op. The host checks for
@@ -20,17 +21,18 @@ import torch
 from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
-from alphafive_tpu_torch.mcts import search
+from alphafive_tpu_torch.mcts import gumbel, search
 
 
 def _search_action(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
                    evaluate: Callable, sims: int, state: EnvState,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Greedy match-play action int32[E]."""
+    """Greedy match-play action int32[E]: the visit argmax, or with the
+    Gumbel root the halving winner at g = 0."""
     if mcts_cfg.root_selection == "gumbel":
-        raise NotImplementedError(
-            "the Gumbel root search is not ported yet: ROADMAP Queue 1 "
-            "item 8")
+        return gumbel.run_gumbel_mcts(env_cfg, mcts_cfg, evaluate, state,
+                                      generator, num_simulations=sims,
+                                      add_noise=False).action
     res = search.run_mcts(env_cfg, mcts_cfg, evaluate, state, generator,
                           num_simulations=sims, add_noise=False)
     return res.visits.argmax(dim=-1).int()

@@ -12,6 +12,12 @@ the entry points a user calls:
   sims per move, the bundled 15×15 weights) through
   ``alphafive_tpu_torch.benchmarks.selfplay_bench.run`` — the resblock
   kernel's path, every launch in its resident variant;
+* self-play at ``lowsim_15x15`` with ``net.use_pallas=true`` (2,048 envs,
+  the Gumbel root at 16 sims: one pass of 16 lanes, so 32,768-leaf
+  forwards; the bundled ``15x15_lowsim`` weights) through the same entry
+  point, with a per-ply breakdown by synchronised timers; the capped and
+  full-width Gumbel searches held equal on 256 positions; and the replay
+  ring at the preset's capacity filled from that self-play and sampled;
 * ``python -m alphafive_tpu_torch.cli eval --preset chip_15x15`` with the
   packed-tree search (``mcts.select_impl=pallas``, full width,
   ``leaf_batch`` 1: 400 sims per net move through the select kernel)
@@ -60,12 +66,14 @@ from alphafive_tpu_torch.ops import _build, resblock as rb  # noqa: E402
 from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 
 # kernel vs plain: (batch, board, channels, dtype, the variant that must
-# run it); the first two are the self-play path's pass and root forwards,
-# the next four the other bundles, and the last five every other kernel
-# instantiation of csrc/resblock.cu (bf16 streaming at 64 channels, tiled
-# at 9x9, f32 plain at each channel count)
+# run it); the first two are chip_15x15 self-play's pass and root forwards,
+# the third lowsim_15x15's leaf forward (2,048 envs × 16 lanes; its root
+# forward is the first shape), the next four the other bundles, and the
+# last five every other kernel instantiation of csrc/resblock.cu (bf16
+# streaming at 64 channels, tiled at 9x9, f32 plain at each channel count)
 SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (256, 15, 64, torch.bfloat16, "resident"),
+          (32768, 15, 64, torch.bfloat16, "resident"),
           (2048, 9, 64, torch.bfloat16, "resident"),
           (2048, 19, 96, torch.bfloat16, "streaming"),
           (2048, 19, 128, torch.bfloat16, "streaming"),
@@ -83,6 +91,11 @@ TOL = {torch.bfloat16: (5e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 NET_TOL = {"logits": (1e-1, 2e-2), "value": 2e-2}
 SELFPLAY_PLIES, SELFPLAY_REPEATS = 4, 2
 FORWARDS_PER_PLY = 400 // 8 + 1   # 50 passes of 8 lanes + the root
+# lowsim_15x15: plies per chunk, timed chunks (after the first), and the
+# forwards per ply (the root, then one pass of 16 lanes)
+LOWSIM_PLIES, LOWSIM_REPEATS, LOWSIM_FORWARDS = 8, 2, 2
+BREAKDOWN_PLIES = 3            # plies timed part by part
+CAPPED_ENVS = 256              # positions of the capped/full-width check
 # packed-tree search: 400 sims per move, descents capped at 64 edges
 SIMS, DEPTH = 400, 64
 # select kernel vs plain: (bundle, envs) of the searches whose trees are
@@ -238,11 +251,12 @@ def random_states(env_cfg, n: int, max_plies: int, seed: int = 1):
     return st
 
 
-def phase_bundle():
+def phase_bundle(bundle: str):
+    """A bundle's forward through the kernel against its plain version on
+    2,048 random positions, within NET_TOL."""
     from alphafive_tpu_torch.models.resnet import FusedPolicyValueNet
     from alphafive_tpu_torch.train.checkpoint import load_model
-    params, stats, cfg = load_model(os.path.join(ROOT, "pretrained",
-                                                 "15x15"))
+    params, stats, cfg = load_model(os.path.join(ROOT, "pretrained", bundle))
     from alphafive_tpu_torch.env import vector
     feats = vector.state_features(cfg.env, random_states(cfg.env, 2048, 60))
     kernel_net = FusedPolicyValueNet(cfg.env, cfg.net, params, stats, "cuda")
@@ -258,22 +272,27 @@ def phase_bundle():
               and (lerr <= atol + rtol * ref_logits.abs()).all()
               and verr <= NET_TOL["value"])
     agree = (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean()
-    emit("bundle", bundle="pretrained/15x15", positions=2048,
+    emit("bundle", bundle=f"pretrained/{bundle}", positions=2048,
          logits_max_abs_err=lerr.max().item(), value_max_abs_err=verr,
          tol=NET_TOL, argmax_agreement=agree.item(), ok=ok)
     if not ok:
-        raise AssertionError("bundle forward: kernel disagrees with plain")
+        raise AssertionError(f"{bundle} forward: kernel disagrees with "
+                             "plain")
     return params, stats, cfg
+
+
+def check_fit(bundle: str, saved_cfg, cfg) -> None:
+    net = lambda c: (c.net.blocks, c.net.channels, c.net.value_hidden,
+                     c.env.board_size)
+    if net(saved_cfg) != net(cfg):
+        raise ValueError(f"pretrained/{bundle} does not fit {cfg.name}'s net")
 
 
 def phase_selfplay(params, stats, saved_cfg, card: str):
     from alphafive_tpu_torch.benchmarks import selfplay_bench
     from alphafive_tpu_torch.config import apply_overrides, get_preset
     cfg = apply_overrides(get_preset("chip_15x15"), ["net.use_pallas=true"])
-    if (saved_cfg.net.blocks, saved_cfg.net.channels,
-            saved_cfg.net.value_hidden) != (cfg.net.blocks, cfg.net.channels,
-                                            cfg.net.value_hidden):
-        raise ValueError("pretrained/15x15 does not fit chip_15x15's net")
+    check_fit("15x15", saved_cfg, cfg)
     sims = cfg.mcts.num_simulations
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     plies = [0]
@@ -306,6 +325,241 @@ def phase_selfplay(params, stats, saved_cfg, card: str):
     if not ok:
         raise AssertionError("self-play phase failed its checks")
     return launches
+
+
+def phase_selfplay_lowsim(params, stats, saved_cfg, card: str):
+    """lowsim_15x15 self-play through selfplay_bench.run: every root live,
+    its visits summing to 16, every move legal and visited, π' finite,
+    summing to 1 and zero on stones; two forwards a ply through the
+    kernel's resident variant."""
+    from alphafive_tpu_torch.benchmarks import selfplay_bench
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    cfg = apply_overrides(get_preset("lowsim_15x15"), ["net.use_pallas=true"])
+    check_fit("15x15_lowsim", saved_cfg, cfg)
+    sims = cfg.mcts.num_simulations
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    plies = [0]
+
+    def observe(state, res, action):
+        a = action.long()[:, None]
+        pi = res.pi_target
+        bad.add_((res.visits.sum(-1) != sims).sum()
+                 + (state.board.gather(1, a)[:, 0] != 0).sum()
+                 + (res.visits.gather(1, a)[:, 0] < 1).sum()
+                 + state.done.sum() + (~torch.isfinite(pi)).sum()
+                 + ((pi.sum(-1) - 1).abs() >= 1e-5).sum()
+                 + ((pi != 0) & (state.board != 0)).sum())
+        plies[0] += 1
+
+    rb.resblock_launches = 0
+    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    out, traj = selfplay_bench.run(
+        cfg, plies=LOWSIM_PLIES, warmup=0, repeats=LOWSIM_REPEATS,
+        device="cuda", params=params, batch_stats=stats, observe=observe,
+        return_trajectory=True)
+    launches = rb.resblock_launches
+    variants = dict(rb.variant_launches)
+    expected = cfg.net.blocks * LOWSIM_FORWARDS * plies[0]
+    ok = bool(bad.item() == 0 and launches == expected
+              and variants["resident"] == launches)
+    emit("selfplay_lowsim", **out, total_plies=plies[0],
+         resblock_launches=launches, variant_launches=variants,
+         expected_launches=expected, failed_checks=bad.item(),
+         nvidia_smi=nvidia_smi(), card=card, ok=ok)
+    if not ok:
+        raise AssertionError("lowsim self-play phase failed its checks")
+    return launches, traj, cfg
+
+
+def phase_lowsim_breakdown(params, stats, cfg, card: str):
+    """Where a lowsim_15x15 ply goes, by synchronised timers: a sync
+    before and after each part (the evaluator's calls split by batch into
+    the root and leaf forwards; the descent; the leaf env.step; the rest
+    of the pass is the backup; the rest of the search is the Gumbel
+    set-up, the halving and π'; then the ply's own env step and reset).
+    Also the ply's wall time without the timers' syncs."""
+    from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.mcts import gumbel, search
+    from alphafive_tpu_torch.models.evaluator import net_evaluator
+    e = cfg.train.num_envs
+    net_eval = net_evaluator(cfg.env, cfg.net, params, stats, "cuda")
+    acc = dict.fromkeys(("root_forward", "leaf_forward", "descent",
+                         "leaf_env_step", "pass_rest", "search",
+                         "ply_env_step"), 0.0)
+
+    def timer(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    def evaluate(board, to_play, last):
+        name = "root_forward" if board.shape[0] == e else "leaf_forward"
+        return timer(name, net_eval)(board, to_play, last)
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def advance(st, action):
+        st = saved[2](cfg.env, st, action)
+        return vector.reset_where(cfg.env, st, st.done)
+
+    def ply(st):
+        res = gumbel.run_gumbel_mcts(cfg.env, cfg.mcts, evaluate, st, gen)
+        return play(st, res.action)
+
+    saved = (search._select_one, search._expand_and_backup, vector.step,
+             gumbel.run_gumbel_mcts)
+    st = random_states(cfg.env, e, 30, seed=3)
+    play = advance
+    ply(st)                                         # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(BREAKDOWN_PLIES):
+        st = ply(st)
+    torch.cuda.synchronize()
+    untimed = (time.perf_counter() - t0) / BREAKDOWN_PLIES
+    acc.update(dict.fromkeys(acc, 0.0))   # the forwards ran untimed too
+    search._select_one = timer("descent", saved[0])
+    search._expand_and_backup = timer("pass_rest", saved[1])
+    vector.step = timer("leaf_env_step", saved[2])
+    gumbel.run_gumbel_mcts = timer("search", saved[3])
+    play = timer("ply_env_step", advance)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BREAKDOWN_PLIES):
+            st = ply(st)
+        torch.cuda.synchronize()
+        timed = (time.perf_counter() - t0) / BREAKDOWN_PLIES
+    finally:
+        (search._select_one, search._expand_and_backup, vector.step,
+         gumbel.run_gumbel_mcts) = saved
+    ms = {k: v / BREAKDOWN_PLIES * 1e3 for k, v in acc.items()}
+    device = device_profile(lambda: ply(st), BREAKDOWN_PLIES)
+    # nested parts: the leaf step and forward run inside the pass's rest,
+    # and the pass and root forward inside the search
+    parts = {
+        "root_forward": ms["root_forward"], "descent": ms["descent"],
+        "leaf_env_step": ms["leaf_env_step"],
+        "leaf_forward": ms["leaf_forward"],
+        "backup": ms["pass_rest"] - ms["leaf_env_step"] - ms["leaf_forward"],
+        "setup_halving_and_pi": ms["search"] - ms["root_forward"]
+        - ms["descent"] - ms["pass_rest"],
+        "ply_env_step": ms["ply_env_step"]}
+    total = timed * 1e3
+    kernel_ms = device["kernel_ms"]
+    emit("lowsim_breakdown", method="synchronised timers", envs=e,
+         plies=BREAKDOWN_PLIES, ms_per_ply=parts,
+         share={k: v / total for k, v in parts.items()},
+         timed_ply_ms=total, untimed_ply_ms=untimed * 1e3,
+         untimed_env_steps_per_s=e / untimed,
+         device_kernel_ms_per_ply=kernel_ms,
+         device_busy_share=(None if kernel_ms is None
+                            else kernel_ms / (untimed * 1e3)),
+         top_kernels_ms_per_ply=device["top"], nvidia_smi=nvidia_smi(),
+         card=card, ok=True)
+
+
+def device_profile(step, calls: int, top: int = 8) -> dict:
+    """Device kernel ms per call of `step` from a torch.profiler trace of
+    `calls` calls (CUDA activity only; the kernels of one stream do not
+    overlap), and the `top` kernels by time. None where the trace holds
+    no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = (by_name.get(ev.name, 0.0)
+                                + ev.time_range.elapsed_us() / 1e3 / calls)
+    if not by_name:
+        return {"kernel_ms": None, "top": None}
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"kernel_ms": sum(by_name.values()),
+            "top": {name[:80]: ms for name, ms in ranked}}
+
+
+def phase_gumbel_capped_vs_uncapped(params, stats, cfg):
+    """CAPPED_ENVS random positions, the lowsim net through the kernel,
+    one g table: run_gumbel_mcts full width and with branch_cap 225 at
+    lowsim_15x15's budget and types. Equal visits and moves, π' within
+    1e-5."""
+    from alphafive_tpu_torch.mcts.gumbel import run_gumbel_mcts
+    from alphafive_tpu_torch.models.evaluator import net_evaluator
+    evaluate = net_evaluator(cfg.env, cfg.net, params, stats, "cuda")
+    st = random_states(cfg.env, CAPPED_ENVS, 30, seed=7)
+    u = torch.rand(st.board.shape, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(8))
+    g = -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+    un = run_gumbel_mcts(cfg.env, cfg.mcts, evaluate, st, gumbel=g)
+    cap = run_gumbel_mcts(cfg.env, dataclasses.replace(
+        cfg.mcts, branch_cap=cfg.env.num_actions), evaluate, st, gumbel=g)
+    torch.cuda.synchronize()
+    pi_err = (un.pi_target - cap.pi_target).abs().max().item()
+    out = dict(envs=CAPPED_ENVS, branch_cap=cfg.env.num_actions,
+               visits_equal=bool(torch.equal(un.visits, cap.visits)),
+               actions_equal=bool(torch.equal(un.action, cap.action)),
+               pi_max_abs_diff=pi_err,
+               visits_sum_to_sims=bool((un.visits.sum(-1)
+                                        == cfg.mcts.num_simulations).all()))
+    ok = (out["visits_equal"] and out["actions_equal"] and pi_err <= 1e-5
+          and out["visits_sum_to_sims"])
+    emit("gumbel_capped_vs_uncapped", **out, ok=ok)
+    if not ok:
+        raise AssertionError("capped and full-width Gumbel disagree")
+
+
+def phase_replay(traj, cfg, card: str):
+    """The lowsim trajectory (z-resolved) written into a ring of the
+    preset's capacity on the card, and one batch sampled: shapes and
+    types, size and pointer, π rows summing to 1 (bf16) and zero on the
+    transformed board's stones, every last move on a stone."""
+    from alphafive_tpu_torch.replay import buffer
+    ring = buffer.init(cfg.env, cfg.replay, device="cuda")
+    m, bs, s = traj.board.shape[0], cfg.replay.batch_size, cfg.env.board_size
+    t = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    t[0].record()
+    buffer.write(ring, traj.board, traj.to_play, traj.last_move, traj.pi,
+                 traj.z, traj.z_valid, traj.pi_valid)
+    t[1].record()
+    feats, pi, z, zv, pv = buffer.sample(
+        cfg.env, ring, bs, torch.Generator(device="cuda").manual_seed(9))
+    t[2].record()
+    torch.cuda.synchronize()
+    stones = (feats[..., 0] + feats[..., 1]).reshape(bs, -1) > 0
+    last = feats[..., 2].reshape(bs, -1) > 0
+    out = dict(
+        capacity=cfg.replay.capacity, written=m, size=ring.size,
+        ptr=ring.ptr, batch=bs, write_ms=t[0].elapsed_time(t[1]),
+        sample_ms=t[1].elapsed_time(t[2]),
+        shapes_ok=(tuple(feats.shape) == (bs, s, s, 4)
+                   and tuple(pi.shape) == (bs, s * s)
+                   and all(x.shape == (bs,) for x in (z, zv, pv))),
+        dtypes_ok=(all(x.dtype == torch.float32
+                       for x in (feats, pi, z, zv, pv))
+                   and ring.pi.dtype == torch.bfloat16
+                   and ring.board.dtype == torch.int8),
+        pi_sum_max_err=(pi.sum(-1) - 1).abs().max().item(),
+        pi_on_stones=int((pi[stones] != 0).sum()),
+        last_moves=int(last.sum()), last_off_stones=int((last
+                                                         & ~stones).sum()),
+        z_ok=bool(((z == -1) | (z == 0) | (z == 1)).all()),
+        nvidia_smi=nvidia_smi(), card=card)
+    ok = (out["size"] == out["ptr"] == m and out["shapes_ok"]
+          and out["dtypes_ok"] and out["pi_sum_max_err"] <= 4e-3
+          and out["pi_on_stones"] == 0 and out["last_off_stones"] == 0
+          and out["last_moves"] > 0 and out["z_ok"])
+    emit("replay", **out, ok=ok)
+    if not ok:
+        raise AssertionError("replay phase failed its checks")
 
 
 def packed_search(bundle: str, envs: int, seed: int, select=None):
@@ -505,25 +759,38 @@ def main() -> int:
     plib = phase_build()
     latency = phase_select_latency(plib)
     rows = phase_kernel_vs_plain()
-    params, stats, saved_cfg = phase_bundle()
+    params, stats, saved_cfg = phase_bundle("15x15")
     rb_launches = phase_selfplay(params, stats, saved_cfg, card)
+    params, stats, saved_cfg = phase_bundle("15x15_lowsim")
+    lowsim_launches, traj, lowsim = phase_selfplay_lowsim(params, stats,
+                                                          saved_cfg, card)
+    phase_lowsim_breakdown(params, stats, lowsim, card)
+    phase_gumbel_capped_vs_uncapped(params, stats, lowsim)
+    phase_replay(traj, lowsim, card)
     sel_rows = phase_select_kernel_vs_plain(latency)
     phase_search_packed(card)
     sel_launches = phase_eval(card)
     emit("total", seconds=time.time() - t0)
     # the resblock's self-play shape; the select kernel's cli eval shape
     main_row = rows[0]
+    leaf_row = next(r for r in rows if r["batch"] == 32768)
     sel_row = next(r for r in sel_rows if r["envs"] == 1
                    and r["case"] == "tree" and r["forced_k"] == 0.0)
     print(json.dumps({"kernels": [{
         "name": "fused_resblock", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
-        "launches": rb_launches, "max_abs_err": main_row["max_abs_err"],
+        "launches": rb_launches + lowsim_launches,
+        "launches_chip_15x15": rb_launches,
+        "launches_lowsim_15x15": lowsim_launches,
+        "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
-        "host_us_per_call": main_row["host_us_per_call"]}, {
+        "host_us_per_call": main_row["host_us_per_call"],
+        "lowsim_leaf_shape": {k: leaf_row[k] for k in (
+            "batch", "max_abs_err", "ms", "host_us_per_call", "plain_ms",
+            "bound_ms", "bound_by", "share_of_bound", "library_ms")}}, {
         "name": "select_batch", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/select.cu",
         "replaces": "alphafive_tpu/ops/pallas_select.py:189",

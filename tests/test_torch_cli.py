@@ -54,6 +54,27 @@ def test_play_pure_opponent_scripted(monkeypatch, capsys):
     assert "invalid move" in out and "AI plays" in out and "bye" in out
 
 
+def test_play_gumbel_root_scripted(monkeypatch, capsys):
+    """Console play against the Gumbel root (a fresh tiny_test net): the
+    AI plays its halving winner at g = 0 and prints the root value."""
+    moves = iter(["2 2", "0 0"])
+
+    def fake_input(prompt=""):
+        try:
+            return next(moves)
+        except StopIteration:
+            raise EOFError
+
+    monkeypatch.setattr(builtins, "input", fake_input)
+    rc = cli.main(["play", "--preset", "tiny_test", "--device", "cpu",
+                   "--set", "mcts.root_selection=gumbel"])
+    out = capsys.readouterr().out
+    ai = [line for line in out.splitlines() if line.startswith("AI plays")]
+    assert rc == 0 and len(ai) == 2 and "bye" in out
+    assert all("(value " in line for line in ai)
+    assert "(2, 2)" not in "".join(ai) and "(0, 0)" not in "".join(ai)
+
+
 def test_bench_selfplay_and_unported_commands(capsys):
     rc = cli.main(["bench", "--preset", "tiny_test", "--device", "cpu",
                    "--plies", "1", "--set", "train.num_envs=2"])

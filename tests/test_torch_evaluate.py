@@ -1,9 +1,9 @@
 """Evaluation matches, the rollout anchor and the Elo ladder: the torch
 port against the JAX package.
 
-Greedy players with frozen dyadic evaluators are deterministic, so whole
-games must end on the same boards in both packages; one side searches the
-packed tree (the select kernel's path, its plain version on the CPU and
+Greedy players with frozen dyadic evaluators are deterministic (a Gumbel
+side plays its halving winner at g = 0), so whole games must end on the
+same boards in both packages; one side searches the packed tree (the select kernel's path, its plain version on the CPU and
 the Pallas kernel in interpret mode on the JAX side).
 """
 
@@ -130,10 +130,39 @@ def test_evaluate_rejects_odd_games():
     u = uniform_evaluator(env)
     with pytest.raises(ValueError):
         evaluate_vs(env, MCTSConfig(), u, u, 4, 4, 5, device="cpu")
-    gumbel = MCTSConfig(root_selection="gumbel")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        evaluate_vs(env, MCTSConfig(), u, u, 4, 4, 2, mcts_a=gumbel,
-                    device="cpu")
+
+
+def test_gumbel_side_vs_puct_matches_jax():
+    """A Gumbel side (halving winner at g = 0) against a PUCT side, both
+    deterministic, from the same two-ply openings: the games end on the
+    same boards in both packages, and evaluate_vs scores such a match."""
+    size = 5
+    env_j, env_t = (JEnvConfig(board_size=size, n_in_row=4),
+                    EnvConfig(board_size=size, n_in_row=4))
+    g_kw = dict(num_simulations=12, root_selection="gumbel", gumbel_m=8)
+    wb, ww = (frozen_weights(size * size, seed=s) for s in (3, 4))
+    st = vector.init(env_t, 3, "cpu")
+    for acts in ([0, 6, 12], [24, 18, 2]):
+        st = vector.step(env_t, st, torch.tensor(acts, dtype=torch.int32))
+    fj = j_play_games(env_j, JMCTSConfig(), jax_frozen_evaluator(*wb),
+                      jax_frozen_evaluator(*ww), 12, 12, 3,
+                      jax.random.key(0), mcts_black=JMCTSConfig(**g_kw),
+                      mcts_white=JMCTSConfig(), init_state=jax_state(st))
+    ft = play_games(env_t, MCTSConfig(), torch_frozen_evaluator(*wb),
+                    torch_frozen_evaluator(*ww), 12, 12, 3,
+                    mcts_black=MCTSConfig(**g_kw), mcts_white=MCTSConfig(),
+                    init_state=st, device="cpu")
+    for f in dataclasses.fields(ft):
+        np.testing.assert_array_equal(getattr(ft, f.name).numpy(),
+                                      np.asarray(getattr(fj, f.name)),
+                                      err_msg=f.name)
+    assert bool(ft.done.all())
+    u = uniform_evaluator(env_t)
+    res = evaluate_vs(env_t, MCTSConfig(num_simulations=12), u, u, 12, 12, 4,
+                      torch.Generator().manual_seed(2),
+                      mcts_a=MCTSConfig(**g_kw), opening_plies=2,
+                      device="cpu")
+    assert res["games"] == 4 and 0.0 <= res["score"] <= 1.0
 
 
 def test_random_openings_and_per_side_configs():

@@ -4,7 +4,9 @@ A small copy of ``chip_15x15`` (7×7, four in a row, 32 sims, leaf_batch 8,
 branch cap 16, depth cap 16, bf16 priors, int16 value sums) with Dirichlet
 weight 0 and greedy moves from the first ply, so both sides are
 deterministic: the noise is drawn but weighs nothing, and moves are the
-visit argmax. 4 envs play 6 plies through both packages.
+visit argmax. 4 envs play 6 plies through both packages. The Gumbel root
+runs the same copy with each ply's Gumbel table drawn by JAX and handed to
+the port.
 """
 
 import dataclasses
@@ -22,11 +24,13 @@ from alphafive_tpu.models.evaluator import net_evaluator as j_net_evaluator
 from alphafive_tpu.train import actor as jactor
 from alphafive_tpu_torch import config
 from alphafive_tpu_torch.env import vector
+from alphafive_tpu_torch.mcts import gumbel
 from alphafive_tpu_torch.models.evaluator import net_evaluator
 from alphafive_tpu_torch.models.resnet import init_params
 from alphafive_tpu_torch.train import actor
 
-from test_torch_search import jax_frozen_evaluator, torch_frozen_evaluator
+from test_torch_search import (frozen_weights, jax_frozen_evaluator,
+                               torch_frozen_evaluator)
 
 torch.set_num_threads(1)
 
@@ -98,11 +102,84 @@ def test_selfplay_converted_net(use_pallas):
 
 
 def test_gumbel_root_raises():
+    """The Gumbel root refuses deferred backup, which is not ported."""
     ct = small_chip(config)
-    cfg = dataclasses.replace(ct.mcts, root_selection="gumbel")
-    with pytest.raises(NotImplementedError):
-        actor.selfplay_chunk(ct.env, cfg, None, vector.init(ct.env, 1, "cpu"),
+    cfg = dataclasses.replace(ct.mcts, root_selection="gumbel",
+                              backup_interval=2)
+    ev = torch_frozen_evaluator(*frozen_weights(49, 0))
+    with pytest.raises(ValueError, match="item 18"):
+        actor.selfplay_chunk(ct.env, cfg, ev, vector.init(ct.env, 1, "cpu"),
                              torch.Generator(), 1)
+
+
+def jax_gumbel_tables(seed, plies, e, a):
+    """The g table of each ply of the JAX actor's Gumbel search from
+    `seed`: per ply key -> (key, ks, ka, kc), then the search splits ks
+    into (key, kg, keval) and draws g from kg."""
+    @jax.jit
+    def tables(key):
+        out = []
+        for _ in range(plies):
+            key, ks, _, _ = jax.random.split(key, 4)
+            _, kg, _ = jax.random.split(ks, 3)
+            out.append(jax.random.gumbel(kg, (e, a), jnp.float32))
+        return jnp.stack(out)
+    return iter(torch.tensor(np.asarray(tables(jax.random.key(seed)))))
+
+
+@pytest.mark.parametrize("branch_cap", [16, None])
+def test_gumbel_selfplay_matches_jax(branch_cap, monkeypatch):
+    """Gumbel self-play (32 sims, m = 16: halving 16 -> 8 -> 4 lanes) on
+    the slot tree and at full width, each ply's g table the JAX actor's
+    own draw handed to the port: boards, moves, z equal, π' within 1e-5
+    and a distribution over the empty cells."""
+    mcts = dict(root_selection="gumbel", gumbel_m=16, branch_cap=branch_cap)
+    cj, ct = small_chip(jconfig), small_chip(config)
+    cj = cj.replace(mcts=dataclasses.replace(cj.mcts, **mcts))
+    ct = ct.replace(mcts=dataclasses.replace(ct.mcts, **mcts))
+    a = ct.env.num_actions
+    w_l, w_v = frozen_weights(a, seed=9)
+    fn = jax.jit(functools.partial(jactor.selfplay_chunk, cj.env, cj.mcts,
+                                   jax_frozen_evaluator(w_l, w_v),
+                                   num_plies=PLIES))
+    _, tj, _ = fn(jvector.init(cj.env, E), jax.random.key(4))
+
+    tables = jax_gumbel_tables(4, PLIES, E, a)
+    run = gumbel.run_gumbel_mcts
+
+    def injected(*args, **kw):
+        assert kw.pop("add_noise") is True
+        return run(*args, **kw, gumbel=next(tables))
+
+    monkeypatch.setattr(gumbel, "run_gumbel_mcts", injected)
+    seen = []
+    _, tt, _ = actor.selfplay_chunk(
+        ct.env, ct.mcts, torch_frozen_evaluator(w_l, w_v),
+        vector.init(ct.env, E, "cpu"), torch.Generator(), PLIES,
+        observe=lambda st, res, act: seen.append(
+            bool(torch.equal(res.action, act))))
+    assert seen == [True] * PLIES
+    assert_trajectories_equal(tj, tt, pi_atol=1e-5)
+    assert (tt.pi[tt.board != 0] == 0).all()
+
+
+def test_gumbel_pcr_splits_policy_targets():
+    """Gumbel self-play with playout cap randomization: full plies carry
+    π targets, cheap plies (4 sims, still Gumbel-sampled) only values."""
+    env = config.EnvConfig(board_size=5, n_in_row=4)
+    cfg = config.MCTSConfig(num_simulations=12, gumbel_m=8,
+                            root_selection="gumbel", small_simulations=4,
+                            full_sim_fraction=0.5)
+    ev = torch_frozen_evaluator(*frozen_weights(25, 1))
+    _, traj, stats = actor.selfplay_chunk(
+        env, cfg, ev, vector.init(env, 4, "cpu"),
+        torch.Generator().manual_seed(5), 12)
+    pv = traj.pi_valid.reshape(12, 4)
+    assert pv.all(dim=1).any() and (~pv).all(dim=1).any()
+    assert ((pv == pv[:, :1]).all())   # one coin per lockstep ply
+    np.testing.assert_allclose(traj.pi.sum(-1).numpy(), 1.0, atol=1e-5)
+    assert (traj.pi[traj.board != 0] == 0).all()
+    assert stats.env_steps == 48
 
 
 def test_resolve_chunk_lookahead_matches_jax():
