@@ -1,11 +1,14 @@
-"""Self-play throughput benchmark (port of
-``alphafive_tpu/benchmarks/selfplay_bench.py::run`` and ``main``).
+"""Self-play and actor-learner throughput benchmarks (port of
+``alphafive_tpu/benchmarks/selfplay_bench.py``: ``run``,
+``run_iteration`` and ``main``).
 
-Times whole self-play chunks — MCTS with batched net leaf evaluation,
-move sampling, env stepping, auto-reset — on one device, behind
-``torch.cuda.synchronize()``. The first chunk (kernel build and warm-up)
-is reported separately as ``compile_seconds``. Result keys are the JAX
-benchmark's plus ``impl`` and ``device``.
+``run`` times whole self-play chunks — MCTS with batched net leaf
+evaluation, move sampling, env stepping, auto-reset — and
+``run_iteration`` whole actor-learner iterations (self-play chunk, ring
+write, learner steps), on one device, behind ``torch.cuda.synchronize()``
+and a read of the results on the host. The first call (kernel build and
+warm-up) is reported separately as ``compile_seconds``. Result keys are
+the JAX benchmark's plus ``impl`` and ``device``.
 
     python -m alphafive_tpu_torch.benchmarks.selfplay_bench \\
         --preset chip_15x15 --set net.use_pallas=true
@@ -18,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
+from alphafive_tpu_torch import parallel
 from alphafive_tpu_torch.config import RunConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.models.evaluator import net_evaluator
@@ -28,6 +32,67 @@ from alphafive_tpu_torch.train import actor
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _device_name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def run_iteration(cfg: RunConfig, warmup: int = 1, repeats: int = 3,
+                  device: str = "cuda", params=None, batch_stats=None,
+                  seed: int = 0, observe=None) -> Dict:
+    """Benchmark the full actor-learner iteration
+    (``parallel.make_train_iteration``) on one device: one first
+    iteration, `warmup` more, then the best of `repeats`. Each is timed
+    to ``torch.cuda.synchronize()`` after its metrics were read on the
+    host. `params`/`batch_stats` are flax-layout numpy trees (a
+    bundle's); by default a random net from `seed`, which also seeds the
+    carry's generator (JAX's bench hands every iteration the same key;
+    here the generator runs on). `observe(carry, metrics, seconds)`, when
+    given, sees each iteration."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available")
+    carry = parallel.init_carry(cfg, dev, params, batch_stats, seed)
+    iteration = parallel.make_train_iteration(cfg)
+
+    def timed():
+        t0 = time.perf_counter()
+        _, metrics = iteration(carry)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        if observe is not None:
+            observe(carry, metrics, seconds)
+        return metrics, seconds
+
+    metrics, compile_s = timed()
+    for _ in range(warmup):
+        metrics, _ = timed()
+    best = float("inf")
+    for _ in range(repeats):
+        metrics, seconds = timed()
+        best = min(best, seconds)
+
+    env_steps = cfg.train.num_envs * cfg.train.selfplay_plies_per_iter
+    sims = env_steps * cfg.mcts.num_simulations
+    return {
+        "preset": cfg.name,
+        "mode": "iteration",
+        "impl": "torch",
+        "device": _device_name(dev),
+        "board": cfg.env.board_size,
+        "num_envs": cfg.train.num_envs,
+        "num_simulations": cfg.mcts.num_simulations,
+        "plies": cfg.train.selfplay_plies_per_iter,
+        "learner_steps": cfg.train.learner_steps_per_iter,
+        "chips": 1,
+        "seconds": best,
+        "compile_seconds": compile_s,
+        "env_steps_per_s": env_steps / best,
+        "env_steps_per_s_per_chip": env_steps / best,
+        "sims_per_s": sims / best,
+        "updated": metrics["updated"],
+    }
 
 
 def run(cfg: RunConfig, plies: int = 8, warmup: int = 1, repeats: int = 3,
@@ -68,8 +133,7 @@ def run(cfg: RunConfig, plies: int = 8, warmup: int = 1, repeats: int = 3,
     out: Dict = {
         "preset": cfg.name,
         "impl": "torch",
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
+        "device": _device_name(dev),
         "board": cfg.env.board_size,
         "num_envs": cfg.train.num_envs,
         "num_simulations": cfg.mcts.num_simulations,

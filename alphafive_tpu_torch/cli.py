@@ -6,11 +6,14 @@
         --set mcts.leaf_batch=1
     python -m alphafive_tpu_torch.cli play  --preset smoke_9x9
     python -m alphafive_tpu_torch.cli bench --preset chip_15x15
+    python -m alphafive_tpu_torch.cli bench --mode iteration \\
+        --preset train_lowsim_15x15 --set net.use_pallas=true
 
 The flags are the JAX CLI's, except that ``--platform`` is ``--device``
 (default ``cuda``; it refuses to run when CUDA is absent, ``--device cpu``
 runs on the host). ``--set a.b=c`` overrides any config field. ``train``,
-``export`` and ``bench --mode iteration`` are not ported yet and raise.
+``export`` and loading a workdir's training checkpoints are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -24,11 +27,8 @@ import torch
 
 # ROADMAP Queue 1 items of the parts that are not ported yet
 _UNPORTED = {
-    "train": "the learner, iteration and training loop (ROADMAP Queue 1 "
-             "items 10-12)",
+    "train": "the training loop (ROADMAP Queue 1 item 12)",
     "export": "checkpoint export (ROADMAP Queue 1 item 12)",
-    "iteration": "the actor-learner iteration bench (ROADMAP Queue 1 "
-                 "item 11)",
     "ckpt": "full-state training checkpoints (ROADMAP Queue 1 item 12)",
 }
 
@@ -107,12 +107,13 @@ def main(argv=None):
     elif args.cmd == "play":
         _cmd_play(cfg, args, device)
     elif args.cmd == "bench":
-        if args.mode == "iteration":
-            raise NotImplementedError(f"bench --mode iteration: "
-                                      f"{_UNPORTED['iteration']}")
         from alphafive_tpu_torch.benchmarks import selfplay_bench
-        print(json.dumps(selfplay_bench.run(cfg, plies=args.plies,
-                                            device=str(device))))
+        if args.mode == "iteration":
+            out = selfplay_bench.run_iteration(cfg, device=str(device))
+        else:
+            out = selfplay_bench.run(cfg, plies=args.plies,
+                                     device=str(device))
+        print(json.dumps(out))
     return 0
 
 

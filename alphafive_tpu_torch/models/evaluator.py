@@ -9,6 +9,7 @@ key; the port drops it, and the one evaluator that draws random numbers,
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional
 
 import torch
@@ -21,11 +22,22 @@ from alphafive_tpu_torch.models.resnet import (FusedPolicyValueNet,
 
 
 def net_evaluator(env_cfg: EnvConfig, net_cfg: NetConfig, params,
-                  batch_stats, device="cuda") -> Callable:
+                  batch_stats=None, device="cuda") -> Callable:
     """Policy-value-net leaf evaluator. ``net_cfg.use_pallas`` selects the
     fused forward (the resblock kernel on CUDA), as it selects the Pallas
-    forward in the JAX package."""
-    if net_cfg.use_pallas:
+    forward in the JAX package.
+
+    `params`/`batch_stats` are flax-layout trees, or `params` is a live
+    ``PolicyValueNet`` (`batch_stats` None): the evaluator is then built
+    from a snapshot of its weights on its own device (`device` is not
+    read), as the JAX iteration rebuilds its evaluator from the learner's
+    weights each iteration."""
+    if isinstance(params, PolicyValueNet):
+        if net_cfg.use_pallas:
+            model = FusedPolicyValueNet.from_module(env_cfg, net_cfg, params)
+        else:
+            model = copy.deepcopy(params)
+    elif net_cfg.use_pallas:
         model = FusedPolicyValueNet(env_cfg, net_cfg, params, batch_stats,
                                     device)
     else:

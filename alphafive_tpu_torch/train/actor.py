@@ -69,6 +69,20 @@ class Recordings:
     pi_valid: torch.Tensor  # bool[T, E]
 
 
+def init_recordings(env_cfg: EnvConfig, num_plies: int, num_envs: int,
+                    device="cuda") -> Recordings:
+    """Zeroed staging buffer ([T, E]), used before the first chunk exists:
+    `to_play` ones and `last_move` -1, as the JAX package stages it."""
+    t, e, a = num_plies, num_envs, env_cfg.num_actions
+    z = lambda shape, dt, fill=0: torch.full(shape, fill, dtype=dt,
+                                             device=device)
+    return Recordings(
+        board=z((t, e, a), torch.int8), to_play=z((t, e), torch.int8, 1),
+        last_move=z((t, e), torch.int32, -1),
+        pi=z((t, e, a), torch.float32), done=z((t, e), torch.bool),
+        winner=z((t, e), torch.int8), pi_valid=z((t, e), torch.bool))
+
+
 class SelfplayStats(NamedTuple):
     games_finished: int
     env_steps: int

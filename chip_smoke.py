@@ -21,7 +21,16 @@ the entry points a user calls:
 * ``python -m alphafive_tpu_torch.cli eval --preset chip_15x15`` with the
   packed-tree search (``mcts.select_impl=pallas``, full width,
   ``leaf_batch`` 1: 400 sims per net move through the select kernel)
-  against the rollout anchor — the select kernel's path.
+  against the rollout anchor — the select kernel's path;
+* the actor-learner iteration at ``train_lowsim_15x15`` with
+  ``net.use_pallas=true`` from the bundled ``15x15_lowsim`` weights
+  through ``selfplay_bench.run_iteration`` (``cli bench --mode
+  iteration``): each iteration's self-play runs the resblock kernel in an
+  evaluator refolded from the learner's live weights, then the ring write
+  and 4 learner steps of 512; a per-part breakdown by synchronised timers
+  follows. Before it, one learner step at batch 512: f32 on the card
+  against the port's own CPU step, and the bf16 step timed beside its
+  FLOP bound.
 
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
@@ -108,6 +117,16 @@ FORCED_K = 2.0   # the forced-playout gate's k in the second comparison
 # tensor cores, f32 outside the tensor cores, device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# the actor-learner iteration: iterations run (the first, one warm-up and
+# the timed ones), and steps compared f32 card against CPU
+ITERATION_WARMUP, ITERATION_REPEATS, LEARNER_CHECK_STEPS = 1, 2, 3
+# f32 learner steps, card against CPU, TF32 off: summation order only.
+# Aux metrics and batch statistics to 1e-4 relative; the Adam moments to
+# 1e-3 relative plus 1e-4 of their largest entry; params to 4e-6 absolute
+# (the three steps move a weight by at most ~6e-5: lr 0, 2e-5, 4e-5)
+LEARNER_TOL = {"aux_rtol": 1e-4, "stats_rtol": 1e-4, "stats_atol": 1e-5,
+               "moment_rtol": 1e-3, "moment_atol_of_max": 1e-4,
+               "param_atol": 4e-6}
 # cli eval: two games against the rollout anchor at a small budget
 EVAL_ARGV = ["eval", "--preset", "chip_15x15",
              "--set", "mcts.select_impl=pallas",
@@ -483,8 +502,10 @@ def device_profile(step, calls: int, top: int = 8) -> dict:
     if not by_name:
         return {"kernel_ms": None, "top": None}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return {"kernel_ms": sum(by_name.values()),
-            "top": {name[:80]: ms for name, ms in ranked}}
+    shown = {}
+    for name, ms in ranked:   # names cut to 80 characters may coincide
+        shown[name[:80]] = shown.get(name[:80], 0.0) + ms
+    return {"kernel_ms": sum(by_name.values()), "top": shown}
 
 
 def phase_gumbel_capped_vs_uncapped(params, stats, cfg):
@@ -751,6 +772,291 @@ def phase_eval(card: str):
     return launches
 
 
+def net_flops(cfg) -> float:
+    """Multiply-adds × 2 of one position's forward: the 3×3 stem and the
+    blocks' convs, the 1×1 head convs and the three dense layers."""
+    s2, c, a = cfg.env.board_size ** 2, cfg.net.channels, cfg.env.num_actions
+    convs = 2 * s2 * 9 * (4 * c + 2 * cfg.net.blocks * c * c)
+    heads = 2 * s2 * c * 3 + 2 * (2 * a * a + a * cfg.net.value_hidden
+                                  + cfg.net.value_hidden)
+    return convs + heads
+
+
+def learner_batches(traj, cfg, n: int, seed: int):
+    """`n` batches of the preset's size sampled on the card from a ring
+    filled with a self-play trajectory."""
+    from alphafive_tpu_torch.replay import buffer
+    ring = buffer.init(cfg.env, cfg.replay, device="cuda")
+    buffer.write(ring, traj.board, traj.to_play, traj.last_move, traj.pi,
+                 traj.z, traj.z_valid, traj.pi_valid)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [buffer.sample(cfg.env, ring, cfg.replay.batch_size, gen)
+            for _ in range(n)]
+
+
+def phase_learner_step(params, stats, traj, saved_cfg, card: str):
+    """One learner step of train_lowsim_15x15 at batch 512 (the
+    `15x15_lowsim` weights, batches sampled from the lowsim self-play
+    ring): three f32 steps on the card against the port's own CPU steps
+    on the same batches (TF32 off) within LEARNER_TOL, then the bf16 step
+    and the probe's eval forward timed with CUDA events beside their FLOP
+    bounds, and the step's device-busy share from a torch.profiler
+    trace."""
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.train import learner
+    cfg = apply_overrides(get_preset("train_lowsim_15x15"),
+                          ["net.use_pallas=true"])
+    check_fit("15x15_lowsim", saved_cfg, cfg)
+    batches = learner_batches(traj, cfg, LEARNER_CHECK_STEPS, seed=11)
+    f32 = dataclasses.replace(cfg.net, compute_dtype="float32")
+    card_ts, cpu_ts = (learner.init_train_state(cfg.env, f32, cfg.train,
+                                                params, stats, dev)
+                       for dev in ("cuda", "cpu"))
+    worst = dict.fromkeys(("aux_rel", "stats_abs", "moment_abs",
+                           "param_abs"), 0.0)
+    ok = True
+    for b in batches:
+        _, aux = learner.train_step(cfg.env, f32, cfg.train, card_ts, b)
+        _, ref = learner.train_step(cfg.env, f32, cfg.train, cpu_ts,
+                                    tuple(x.cpu() for x in b))
+        for k in aux:
+            g, w = float(aux[k]), float(ref[k])
+            rel = abs(g - w) / max(abs(w), 1e-12)
+            worst["aux_rel"] = max(worst["aux_rel"], rel)
+            ok &= math.isfinite(g) and abs(g - w) <= LEARNER_TOL[
+                "aux_rtol"] * abs(w) + 1e-7
+    torch.cuda.synchronize()
+    (gp, gs), (wp, ws) = card_ts.net.to_flax(), cpu_ts.net.to_flax()
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in (
+            leaves(v) if isinstance(v, dict) else [v])]
+    for g, w in zip(leaves(gs), leaves(ws)):
+        err = abs(g - w)
+        worst["stats_abs"] = max(worst["stats_abs"], float(err.max()))
+        ok &= bool((err <= LEARNER_TOL["stats_atol"]
+                    + LEARNER_TOL["stats_rtol"] * abs(w)).all())
+    for g, w in zip(leaves(gp), leaves(wp)):
+        worst["param_abs"] = max(worst["param_abs"], float(abs(g - w).max()))
+    ok &= worst["param_abs"] <= LEARNER_TOL["param_atol"]
+    for mg, mw in ((card_ts.opt_state.mu, cpu_ts.opt_state.mu),
+                   (card_ts.opt_state.nu, cpu_ts.opt_state.nu)):
+        for g, w in zip(mg, mw):
+            g = g.cpu()
+            err = (g - w).abs()
+            worst["moment_abs"] = max(worst["moment_abs"], float(err.max()))
+            ok &= bool((err <= LEARNER_TOL["moment_rtol"] * w.abs()
+                        + LEARNER_TOL["moment_atol_of_max"]
+                        * float(w.abs().max())).all())
+
+    # the bf16 step, timed: eager CUDA events (median of 5 windows of 20)
+    ts = learner.init_train_state(cfg.env, cfg.net, cfg.train, params,
+                                  stats, "cuda")
+    b = batches[0]
+
+    def step():
+        learner.train_step(cfg.env, cfg.net, cfg.train, ts, b)
+
+    def probe():
+        ts.net(b[0])
+    step_ms, step_spread = timing.eager_ms(step)
+    probe_ms, probe_spread = timing.eager_ms(probe)
+    device = device_profile(step, 5, top=12)
+    bs = cfg.replay.batch_size
+    n_params = sum(p.numel() for p in ts.net.parameters())
+    # the step reads the batch once, and reads and writes each weight and
+    # its two Adam moments
+    in_bytes = sum(x.numel() * x.element_size() for x in b)
+    bound_ms, bound_by = bound(3 * net_flops(cfg) * bs,
+                               in_bytes + 6 * 4 * n_params, torch.bfloat16)
+    probe_bound, _ = bound(net_flops(cfg) * bs, b[0].numel() * 4
+                           + 4 * n_params, torch.bfloat16)
+    kernel_ms = device["kernel_ms"]
+    out = dict(batch=bs, f32_steps=LEARNER_CHECK_STEPS, tol=LEARNER_TOL,
+               worst=worst, bf16_step_ms=step_ms,
+               bf16_step_ms_spread=step_spread,
+               step_flops=3 * net_flops(cfg) * bs, bound_ms=bound_ms,
+               bound_by=bound_by, share_of_bound=bound_ms / step_ms,
+               device_kernel_ms_per_step=kernel_ms,
+               device_busy_share=(None if kernel_ms is None
+                                  else kernel_ms / step_ms),
+               top_kernels_ms_per_step=device["top"],
+               probe_forward_ms=probe_ms, probe_forward_spread=probe_spread,
+               probe_bound_ms=probe_bound,
+               probe_share_of_bound=probe_bound / probe_ms,
+               library_ms=None, nvidia_smi=nvidia_smi(), card=card, ok=ok)
+    emit("learner_step", **out)
+    if not ok:
+        raise AssertionError("learner step: the card disagrees with the CPU")
+    return out
+
+
+def phase_iteration_lowsim(params, stats, saved_cfg, card: str):
+    """The actor-learner iteration at train_lowsim_15x15 + use_pallas from
+    the `15x15_lowsim` weights, through selfplay_bench.run_iteration:
+    iteration 0 stages only (no update, empty ring); every later one
+    writes 65,536 rows, runs at least one learner step with finite
+    losses, moves the weights and batch statistics and keeps lr_scale in
+    [0.1, lr_scale_max]; every resblock launch (8 a ply) resident. Then
+    the rebuilt fused evaluator against its plain twin on 2,048
+    positions."""
+    from alphafive_tpu_torch.benchmarks import selfplay_bench
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.models.resnet import FusedPolicyValueNet
+    cfg = apply_overrides(get_preset("train_lowsim_15x15"),
+                          ["net.use_pallas=true"])
+    check_fit("15x15_lowsim", saved_cfg, cfg)
+    tc = cfg.train
+    chunk = tc.num_envs * tc.selfplay_plies_per_iter
+    snap = lambda tensors: [t.detach().clone() for t in tensors]
+    change = lambda now, before: max(float((a - b).abs().max())
+                                     for a, b in zip(now, before))
+    seen = []
+
+    def observe(carry, metrics, seconds):
+        net = carry.train_state.net
+        now = (snap(net.parameters()), snap(net.buffers()))
+        moved = ((None, None) if not seen else
+                 tuple(change(a, b) for a, b in zip(now, seen[-1]["weights"])))
+        seen.append(dict(metrics=metrics, seconds=seconds, weights=now,
+                         moved=moved, carry=carry,
+                         launches=rb.resblock_launches))
+
+    rb.resblock_launches = 0
+    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    out = selfplay_bench.run_iteration(
+        cfg, warmup=ITERATION_WARMUP, repeats=ITERATION_REPEATS,
+        device="cuda", params=params, batch_stats=stats, observe=observe)
+    launches = rb.resblock_launches
+    variants = dict(rb.variant_launches)
+    iters = len(seen)
+    per_ply = cfg.net.blocks * LOWSIM_FORWARDS
+    expected = per_ply * tc.selfplay_plies_per_iter * iters
+    fails = []
+    for i, it in enumerate(seen):
+        m = it["metrics"]
+        if i == 0:
+            if m["updated"] != 0.0 or m["buffer_size"] != 0.0:
+                fails.append((i, "iteration 0 updated or wrote"))
+            continue
+        losses = [m[k] for k in ("loss", "policy_loss", "value_loss")]
+        checks = {
+            "updated": m["updated"] == 1.0,
+            "ring": m["buffer_size"] == min(chunk * i, cfg.replay.capacity),
+            "executed_steps": m["executed_steps"] >= 1.0,
+            "finite_losses": all(math.isfinite(x) for x in losses),
+            "params_moved": it["moved"][0] > 0.0,
+            "batch_stats_moved": it["moved"][1] > 0.0,
+            "lr_scale": 0.1 <= m["lr_scale"] <= tc.lr_scale_max,
+            "z_valid_frac": 0.0 <= m["z_valid_frac"] <= 1.0}
+        fails += [(i, k) for k, v in checks.items() if not v]
+    carry = seen[-1]["carry"]
+    ts = carry.train_state
+    if not 0.1 <= float(ts.lr_scale) <= tc.lr_scale_max:
+        fails.append(("end", "lr_scale"))
+    if launches != expected or variants["resident"] != launches:
+        fails.append(("all", "launches"))
+    # the evaluator the next iteration would build, kernel against plain
+    feats = vector.state_features(cfg.env, random_states(cfg.env, 2048, 60))
+    kernel_net = FusedPolicyValueNet.from_module(cfg.env, cfg.net, ts.net)
+    plain_net = FusedPolicyValueNet.from_module(cfg.env, cfg.net, ts.net,
+                                                plain=True)
+    logits, value = kernel_net(feats)
+    ref_logits, ref_value = plain_net(feats)
+    torch.cuda.synchronize()
+    lerr = (logits - ref_logits).abs()
+    verr = (value - ref_value).abs().max().item()
+    atol, rtol = NET_TOL["logits"]
+    if not (torch.isfinite(logits).all() and torch.isfinite(value).all()
+            and (lerr <= atol + rtol * ref_logits.abs()).all()
+            and verr <= NET_TOL["value"]):
+        fails.append(("end", "rebuilt evaluator kernel vs plain"))
+    per_iter = [dict(it["metrics"], seconds=it["seconds"],
+                     params_max_change=it["moved"][0],
+                     batch_stats_max_change=it["moved"][1],
+                     resblock_launches_so_far=it["launches"])
+                for it in seen]
+    emit("iteration_lowsim", **out, iterations=iters,
+         seconds_per_iteration=[it["seconds"] for it in seen],
+         resblock_launches=launches, expected_launches=expected,
+         variant_launches=variants, per_iteration=per_iter,
+         rebuilt_evaluator=dict(positions=2048,
+                                logits_max_abs_err=lerr.max().item(),
+                                value_max_abs_err=verr, tol=NET_TOL),
+         failed_checks=fails, nvidia_smi=nvidia_smi(), card=card,
+         ok=not fails)
+    if fails:
+        raise AssertionError(f"iteration phase failed its checks: {fails}")
+    return launches, carry, cfg
+
+
+def phase_iteration_breakdown(carry, cfg, card: str):
+    """Where an iteration goes: one iteration untimed, then one with a
+    sync before and after each part (the evaluator rebuild, self-play,
+    the resolve, the ring write, and inside the learner phase its batch
+    samples, train steps, probe forwards and adapt_lr_scale), then the
+    device kernel time of one more from a torch.profiler trace."""
+    from alphafive_tpu_torch import parallel
+    from alphafive_tpu_torch.parallel import mesh
+    from alphafive_tpu_torch.replay import buffer
+    from alphafive_tpu_torch.train import actor, learner
+    iteration = parallel.make_train_iteration(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iteration(carry)
+    torch.cuda.synchronize()
+    untimed = time.perf_counter() - t0
+    acc = {}
+
+    def timer(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t
+            return res
+        return run
+
+    patches = [(mesh, "net_evaluator", "evaluator_rebuild"),
+               (actor, "selfplay_record", "selfplay"),
+               (actor, "resolve_chunk", "resolve"),
+               (buffer, "write", "ring_write"),
+               (mesh, "learner_phase", "learner_phase"),
+               (buffer, "sample", "learner_sample"),
+               (learner, "train_step", "learner_steps"),
+               (mesh, "policy_logp", "probe_forwards"),
+               (learner, "adapt_lr_scale", "adapt_lr_scale")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, label in patches:
+        setattr(mod, name, timer(label, getattr(mod, name)))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = iteration(carry)
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    device = device_profile(lambda: iteration(carry), 1)
+    ms = {k: v * 1e3 for k, v in acc.items()}
+    kernel_ms = device["kernel_ms"]
+    env_steps = cfg.train.num_envs * cfg.train.selfplay_plies_per_iter
+    emit("iteration_breakdown", method="synchronised timers",
+         ms=ms, share={k: v / (timed * 1e3) for k, v in ms.items()},
+         learner_share=ms.get("learner_phase", 0.0) / (timed * 1e3),
+         timed_ms=timed * 1e3, untimed_ms=untimed * 1e3,
+         untimed_env_steps_per_s=env_steps / untimed,
+         executed_steps=m["executed_steps"],
+         device_kernel_ms=kernel_ms,
+         device_busy_share=(None if kernel_ms is None
+                            else kernel_ms / (untimed * 1e3)),
+         top_kernels_ms=device["top"], nvidia_smi=nvidia_smi(), card=card,
+         ok=True)
+
+
 def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -767,6 +1073,11 @@ def main() -> int:
     phase_lowsim_breakdown(params, stats, lowsim, card)
     phase_gumbel_capped_vs_uncapped(params, stats, lowsim)
     phase_replay(traj, lowsim, card)
+    phase_learner_step(params, stats, traj, saved_cfg, card)
+    train_launches, carry, train_cfg = phase_iteration_lowsim(
+        params, stats, saved_cfg, card)
+    phase_iteration_breakdown(carry, train_cfg, card)
+    del carry
     sel_rows = phase_select_kernel_vs_plain(latency)
     phase_search_packed(card)
     sel_launches = phase_eval(card)
@@ -780,9 +1091,10 @@ def main() -> int:
         "name": "fused_resblock", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
-        "launches": rb_launches + lowsim_launches,
+        "launches": rb_launches + lowsim_launches + train_launches,
         "launches_chip_15x15": rb_launches,
         "launches_lowsim_15x15": lowsim_launches,
+        "launches_train_lowsim_15x15": train_launches,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

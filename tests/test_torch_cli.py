@@ -80,13 +80,40 @@ def test_bench_selfplay_and_unported_commands(capsys):
                    "--plies", "1", "--set", "train.num_envs=2"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["device"] == "cpu" and out["sims_per_s"] > 0
-    for argv in (["train"], ["export", "--out", "x"],
-                 ["bench", "--mode", "iteration"]):
+    for argv in (["train"], ["export", "--out", "x"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main([*argv, "--preset", "tiny_test", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             cli.main(["eval", "--preset", "tiny_test"])
+
+
+# the keys `python -m alphafive_tpu.cli bench --mode iteration` prints
+# (benchmarks/selfplay_bench.py::run_iteration)
+JAX_ITERATION_KEYS = {"preset", "mode", "board", "num_envs",
+                      "num_simulations", "plies", "learner_steps", "chips",
+                      "seconds", "compile_seconds", "env_steps_per_s",
+                      "env_steps_per_s_per_chip", "sims_per_s", "updated"}
+
+
+def test_bench_iteration(capsys):
+    """`bench --mode iteration` runs the actor-learner iteration: the JAX
+    CLI's keys plus impl and device; tiny_test's ring passes min_fill
+    from the second iteration on, so the timed ones update. Refused
+    without CUDA unless --device cpu."""
+    rc = cli.main(["bench", "--mode", "iteration", "--preset", "tiny_test",
+                   "--device", "cpu", "--set",
+                   "train.selfplay_plies_per_iter=9"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and set(out) == JAX_ITERATION_KEYS | {"impl", "device"}
+    assert (out["mode"], out["device"], out["chips"]) == ("iteration", "cpu",
+                                                          1)
+    assert out["updated"] == 1.0 and out["plies"] == 9
+    assert out["env_steps_per_s"] == pytest.approx(4 * 9 / out["seconds"])
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit):
+            cli.main(["bench", "--mode", "iteration", "--preset",
+                      "tiny_test"])
 
 
 def test_pretrained_dir_matches_jax():
