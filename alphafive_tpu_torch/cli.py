@@ -1,6 +1,12 @@
-"""Command-line entry points: eval / play / bench (port of
-``alphafive_tpu/cli.py``). Usage:
+"""Command-line entry points: train / eval / play / bench / export (port
+of ``alphafive_tpu/cli.py``). Usage:
 
+    python -m alphafive_tpu_torch.cli train --preset train_lowsim_15x15 \\
+        --set net.use_pallas=true --init-from pretrained/15x15_lowsim \\
+        --workdir runs/lowsim
+    python -m alphafive_tpu_torch.cli train ... --resume
+    python -m alphafive_tpu_torch.cli export --workdir runs/lowsim \\
+        --out runs/lowsim_model
     python -m alphafive_tpu_torch.cli eval  --preset chip_15x15 \\
         --set mcts.select_impl=pallas --set mcts.branch_cap=none \\
         --set mcts.leaf_batch=1
@@ -11,9 +17,12 @@
 
 The flags are the JAX CLI's, except that ``--platform`` is ``--device``
 (default ``cuda``; it refuses to run when CUDA is absent, ``--device cpu``
-runs on the host). ``--set a.b=c`` overrides any config field. ``train``,
-``export`` and loading a workdir's training checkpoints are not ported yet
-and raise.
+runs on the host). ``--set a.b=c`` overrides any config field. ``train``
+and ``bench`` on the card first run the memory guard (``utils/memory.py``)
+unless ``--allow-oversubscribe``. ``--workdir`` loads the latest training
+checkpoint under ``<workdir>/ckpt`` (the port's own format,
+``train/checkpoint.py``) or an exported bundle. The multi-host flags of
+``train`` raise: the port trains on one device.
 """
 
 from __future__ import annotations
@@ -27,9 +36,7 @@ import torch
 
 # ROADMAP Queue 1 items of the parts that are not ported yet
 _UNPORTED = {
-    "train": "the training loop (ROADMAP Queue 1 item 12)",
-    "export": "checkpoint export (ROADMAP Queue 1 item 12)",
-    "ckpt": "full-state training checkpoints (ROADMAP Queue 1 item 12)",
+    "multihost": "multi-GPU training (ROADMAP Queue 1 item 15)",
 }
 
 
@@ -78,9 +85,7 @@ def main(argv=None):
 
     sp = sub.add_parser("bench", help="self-play throughput benchmark")
     common(sp)
-    sp.add_argument("--allow-oversubscribe", action="store_true",
-                    help="accepted for the JAX CLI's command lines; the "
-                         "memory guard is not ported yet")
+    sp.add_argument("--allow-oversubscribe", action="store_true")
     sp.add_argument("--plies", type=int, default=8)
     sp.add_argument("--mode", choices=["selfplay", "iteration"],
                     default="selfplay")
@@ -90,8 +95,12 @@ def main(argv=None):
     sp.add_argument("--out", required=True)
 
     args = p.parse_args(argv)
-    if args.cmd in ("train", "export"):
-        raise NotImplementedError(f"{args.cmd}: {_UNPORTED[args.cmd]}")
+    if args.cmd == "train" and (args.multihost or args.coordinator
+                                or args.num_processes is not None
+                                or args.process_id is not None):
+        raise NotImplementedError(
+            f"--multihost/--coordinator/--num-processes/--process-id: "
+            f"{_UNPORTED['multihost']}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: CUDA is not available "
@@ -102,7 +111,16 @@ def main(argv=None):
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    if args.cmd == "eval":
+    if args.cmd in ("train", "bench"):
+        _check_device_budget(cfg, args, device)
+    if args.cmd == "train":
+        from alphafive_tpu_torch.train.loop import train
+        train(cfg, workdir=args.workdir, total_iters=args.iters,
+              resume=args.resume, profile_iters=args.profile_iters,
+              init_from=args.init_from, device=str(device))
+    elif args.cmd == "export":
+        _cmd_export(args, device)
+    elif args.cmd == "eval":
         print(json.dumps(_cmd_eval(cfg, args, device)))
     elif args.cmd == "play":
         _cmd_play(cfg, args, device)
@@ -115,6 +133,38 @@ def main(argv=None):
                                      device=str(device))
         print(json.dumps(out))
     return 0
+
+
+def _check_device_budget(cfg, args, device) -> None:
+    """Refuse a run on the card whose estimated footprint exceeds the
+    budget (``utils/memory.py``), unless ``--allow-oversubscribe``. The
+    CPU (host memory) is not guarded."""
+    if args.allow_oversubscribe or device.type == "cpu":
+        return
+    from alphafive_tpu_torch.utils.memory import budget_error
+    err = budget_error(cfg, 1, device=device)
+    if err is not None:
+        raise SystemExit(err)
+
+
+def _cmd_export(args, device) -> None:
+    """Export the latest checkpoint under ``<workdir>/ckpt`` as a bundle,
+    with its iteration, lr_scale and learner step in config.json."""
+    from alphafive_tpu_torch.train import checkpoint as ckpt
+
+    if not args.workdir:
+        raise SystemExit("export: --workdir with a checkpoint is required")
+    mgr = ckpt.make_manager(f"{args.workdir}/ckpt")
+    step = mgr.latest_step()
+    if step is None:
+        raise SystemExit(f"export: no checkpoint under {args.workdir}/ckpt")
+    ts, saved_cfg = ckpt.restore_train_state(mgr, step, device)
+    params, batch_stats = ts.net.to_flax()
+    ckpt.export_model(args.out, params, batch_stats, saved_cfg,
+                      extra={"iteration": step,
+                             "lr_scale": float(ts.lr_scale),
+                             "train_step": int(ts.step)})
+    print(f"exported step {step} -> {args.out}")
 
 
 def _pretrained_dir(cfg):
@@ -132,20 +182,22 @@ def _pretrained_dir(cfg):
 
 
 def _load_model(cfg, workdir):
-    """(params, batch_stats, net_cfg) for inference: a params-only export
-    dir or bundle (``model.msgpack``) → the bundled model for this board
-    size → a fresh net from ``cfg.train.seed``. The returned net_cfg is the
-    one the weights were trained with: build the evaluator from it, not
-    from the preset."""
+    """(params, batch_stats, net_cfg) for inference: the workdir's latest
+    training checkpoint (restored against its own saved config, so any
+    preset loads it) or a params-only export dir / bundle
+    (``model.msgpack``) → the bundled model for this board size → a fresh
+    net from ``cfg.train.seed``. The returned net_cfg is the one the
+    weights were trained with: build the evaluator from it, not from the
+    preset."""
     from alphafive_tpu_torch.models.resnet import init_params
-    from alphafive_tpu_torch.train.checkpoint import load_model
+    from alphafive_tpu_torch.train import checkpoint as ckpt
 
     def fresh():
         params, batch_stats = init_params(cfg.env, cfg.net, cfg.train.seed)
         return params, batch_stats, cfg.net
 
     def bundle(path, what):
-        params, batch_stats, saved = load_model(path)
+        params, batch_stats, saved = ckpt.load_model(path)
         if saved.env.board_size != cfg.env.board_size:
             raise ValueError(f"{path}: board {saved.env.board_size} differs "
                              f"from the preset's {cfg.env.board_size}")
@@ -154,9 +206,20 @@ def _load_model(cfg, workdir):
 
     if workdir:
         # an explicit workdir never falls through to the bundled model
-        ckpt = os.path.join(workdir, "ckpt")
-        if os.path.isdir(ckpt) and os.listdir(ckpt):
-            raise NotImplementedError(f"{ckpt}: {_UNPORTED['ckpt']}")
+        mgr = ckpt.make_manager(os.path.join(workdir, "ckpt"))
+        step = mgr.latest_step()
+        if step is not None:
+            # the train state alone, on the host: the caller builds its
+            # evaluator on its device from these trees
+            ts, saved = ckpt.restore_train_state(mgr, step, "cpu")
+            if saved.env.board_size != cfg.env.board_size:
+                raise ValueError(f"{mgr.directory}: board "
+                                 f"{saved.env.board_size} differs from the "
+                                 f"preset's {cfg.env.board_size}")
+            print(f"restored checkpoint step {step} from {mgr.directory}",
+                  file=sys.stderr)
+            params, batch_stats = ts.net.to_flax()
+            return params, batch_stats, saved.net
         if os.path.exists(os.path.join(workdir, "model.msgpack")):
             return bundle(workdir, "exported model")
         print(f"WARNING: no model under {workdir} — using a fresh "

@@ -30,7 +30,17 @@ the entry points a user calls:
   and 4 learner steps of 512; a per-part breakdown by synchronised timers
   follows. Before it, one learner step at batch 512: f32 on the card
   against the port's own CPU step, and the bf16 step timed beside its
-  FLOP bound.
+  FLOP bound;
+* ``python -m alphafive_tpu_torch.cli train --preset train_lowsim_15x15``
+  with ``net.use_pallas=true`` and ``--init-from pretrained/15x15_lowsim``
+  at full width: 4 iterations with checkpoints at 2 and 4, one ladder eval
+  (cut to 2 games) and the best export (phase ``train_loop``); step 4
+  restored onto the card bit-equal to the carry ``train`` returned, then
+  ``--resume`` to 6 (``train_resume``); ``cli export`` of the result and
+  ``--workdir`` loading (``export``); the memory guard's estimate against
+  the peak the device allocated over ``train_loop`` (``memory_guard``).
+  Every resblock launch of the loop is resident, and each leaf batch its
+  eval launches has a kernel_vs_plain row.
 
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
@@ -60,8 +70,10 @@ import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -77,9 +89,12 @@ from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 # kernel vs plain: (batch, board, channels, dtype, the variant that must
 # run it); the first two are chip_15x15 self-play's pass and root forwards,
 # the third lowsim_15x15's leaf forward (2,048 envs × 16 lanes; its root
-# forward is the first shape), the next four the other bundles, and the
-# last five every other kernel instantiation of csrc/resblock.cu (bf16
-# streaming at 64 channels, tiled at 9x9, f32 plain at each channel count)
+# forward is the first shape), the next four the other bundles, the next
+# five every other kernel instantiation of csrc/resblock.cu (bf16
+# streaming at 64 channels, tiled at 9x9, f32 plain at each channel
+# count), and the last five the train loop's eval: one game a colour, the
+# root (1) and the Gumbel passes of 16, 8, 4 and 2 lanes of a 240-sim
+# search (EVAL_BATCHES; phase train_loop checks it saw no other)
 SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (256, 15, 64, torch.bfloat16, "resident"),
           (32768, 15, 64, torch.bfloat16, "resident"),
@@ -92,6 +107,8 @@ SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (256, 19, 64, torch.float32, "f32_plain"),
           (256, 19, 96, torch.float32, "f32_plain"),
           (256, 19, 128, torch.float32, "f32_plain")]
+EVAL_BATCHES = (1, 2, 4, 8, 16)
+SHAPES += [(b, 15, 64, torch.bfloat16, "resident") for b in EVAL_BATCHES]
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -127,6 +144,27 @@ ITERATION_WARMUP, ITERATION_REPEATS, LEARNER_CHECK_STEPS = 1, 2, 3
 LEARNER_TOL = {"aux_rtol": 1e-4, "stats_rtol": 1e-4, "stats_atol": 1e-5,
                "moment_rtol": 1e-3, "moment_atol_of_max": 1e-4,
                "param_atol": 4e-6}
+# cli train at train_lowsim_15x15 (full width: 2,048 envs, 16-lane
+# Gumbel, ring 400,000, 4 blocks × 64) from the lowsim bundle: 4
+# iterations, checkpoints every 2, one ladder eval at the end; then a
+# resume to 6. Cut: eval_games 32 → 2 (one game a colour)
+TRAIN_EVAL_GAMES = 2
+TRAIN_ARGV = ["train", "--preset", "train_lowsim_15x15",
+              "--set", "net.use_pallas=true",
+              "--set", "train.checkpoint_every_iters=2",
+              "--set", "train.eval_every_iters=4",
+              "--set", f"train.eval_games={TRAIN_EVAL_GAMES}"]
+TRAIN_REDUCED = [f"train.eval_games 32 -> {TRAIN_EVAL_GAMES}",
+                 "iterations 2,400 -> 4 (then a resume to 6)"]
+# the JAX loop's iter record (alphafive_tpu/train/loop.py): the
+# iteration's metrics, the rates and the two lr canaries
+ITER_KEYS = {"t", "kind", "iter", "black_wins", "buffer_size", "draws",
+             "entropy_pi", "env_steps", "executed_steps", "games_finished",
+             "grad_norm", "kl_pi_p", "kl_update", "l2_loss", "loss",
+             "lr_scale", "mean_root_value", "policy_loss", "step", "updated",
+             "value_loss", "value_mae", "white_wins", "z_valid_frac",
+             "iter_seconds", "env_steps_per_s", "env_steps_per_s_per_chip",
+             "sims_per_s", "lr_at_floor", "lr_at_ceiling"}
 # cli eval: two games against the rollout anchor at a small budget
 EVAL_ARGV = ["eval", "--preset", "chip_15x15",
              "--set", "mcts.select_impl=pallas",
@@ -1057,6 +1095,325 @@ def phase_iteration_breakdown(carry, cfg, card: str):
          ok=True)
 
 
+def records(workdir: str) -> list:
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, files in os.walk(path) for f in files)
+
+
+def flax_trees_equal(a, b) -> bool:
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and set(a) == set(b)
+                and all(flax_trees_equal(a[k], b[k]) for k in b))
+    return a.shape == b.shape and a.dtype == b.dtype and bool((a == b).all())
+
+
+@contextlib.contextmanager
+def patched(*patches):
+    """Set (module, name, value) attributes for the block's duration."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, value in patches:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+def timer(fn, acc: list):
+    """`fn` with a sync before and after each call, its seconds into
+    `acc`."""
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        acc.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def carry_diffs(a, b) -> list:
+    """Names of the carry parts where `a` and `b` differ (bit for bit)."""
+    bad = []
+    for part in ("env_state", "buffer", "pending"):
+        x, y = getattr(a, part), getattr(b, part)
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            same = (u.dtype == v.dtype and torch.equal(u, v)
+                    if isinstance(u, torch.Tensor) else u == v)
+            if not same:
+                bad.append(f"{part}.{f.name}")
+    ta, tb = a.train_state, b.train_state
+    for (k, u), v in zip(ta.net.state_dict().items(),
+                         tb.net.state_dict().values()):
+        if not torch.equal(u, v):
+            bad.append(f"net.{k}")
+    moments = ta.opt_state.mu + ta.opt_state.nu
+    if (len(moments) != len(tb.opt_state.mu + tb.opt_state.nu)
+            or not all(torch.equal(u, v) for u, v in zip(
+                moments, tb.opt_state.mu + tb.opt_state.nu))):
+        bad.append("opt_state.moments")
+    if (ta.opt_state.count, ta.step) != (tb.opt_state.count, tb.step):
+        bad.append("opt_state.count/step")
+    if not torch.equal(ta.lr_scale, tb.lr_scale):
+        bad.append("lr_scale")
+    if a.has_pending != b.has_pending:
+        bad.append("has_pending")
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        bad.append("generator")
+    return bad
+
+
+def phase_train_loop(workdir: str, card: str):
+    """`cli train` at train_lowsim_15x15 + use_pallas from the lowsim
+    bundle (--init-from): 4 iterations, checkpoints at 2 and 4, one ladder
+    eval at 4 and the best export. Checks the records (transfer_init,
+    four iter records with the JAX keys and the canaries, iterations 1-3
+    updating with finite losses, checkpoints 2 and 4, one eval with a
+    finite Elo, best), the checkpoint steps, best_model loading with the
+    live weights and an equal f32 forward, every resblock launch resident
+    and every batch the eval launched a row of kernel_vs_plain. The save
+    and eval seconds by synchronised timers; the device memory peak over
+    the phase."""
+    from alphafive_tpu_torch import cli
+    from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.models.resnet import PolicyValueNet
+    from alphafive_tpu_torch.train import checkpoint as ckpt, loop
+    from alphafive_tpu_torch.train import evaluate as ev_mod
+    argv = [*TRAIN_ARGV, "--init-from",
+            os.path.join(ROOT, "pretrained", "15x15_lowsim"),
+            "--workdir", workdir, "--iters", "4"]
+    returned, saves, evals, batches = [], [], [], []
+    train, fused = loop.train, rb.fused_resblock
+    search = ev_mod._search_action
+    sides = {"net": [], "anchor": []}
+
+    def timed_search(env_cfg, mcts_cfg, *args):
+        side = "net" if mcts_cfg.root_selection == "gumbel" else "anchor"
+        return timer(search, sides[side])(env_cfg, mcts_cfg, *args)
+
+    def recording_train(*args, **kw):
+        returned.append(train(*args, **kw))
+        return returned[-1]
+
+    def recording_fused(x, *args):
+        batches.append(tuple(x.shape))
+        return fused(x, *args)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rb.resblock_launches = 0
+    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    t0 = time.perf_counter()
+    with patched((loop, "train", recording_train),
+                 (ckpt, "save", timer(ckpt.save, saves)),
+                 (loop, "run_eval", timer(loop.run_eval, evals)),
+                 (rb, "fused_resblock", recording_fused),
+                 (ev_mod, "_search_action", timed_search)):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, variants = rb.resblock_launches, dict(rb.variant_launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    carry = returned[-1][0]
+    recs = records(workdir)
+    seq = [(r["kind"], r.get("iter")) for r in recs]
+    want = [("transfer_init", None), ("iter", 0), ("iter", 1),
+            ("checkpoint", 2), ("iter", 2), ("iter", 3), ("checkpoint", 4),
+            ("eval", 3), ("best", 4)]
+    fails = [] if rc == 0 and seq == want else [("records", seq)]
+    iters = [r for r in recs if r["kind"] == "iter"]
+    for r in iters:
+        losses = [r[k] for k in ("loss", "policy_loss", "value_loss")]
+        if set(r) != ITER_KEYS:
+            fails.append((r["iter"], "keys", sorted(set(r) ^ ITER_KEYS)))
+        if r["iter"] >= 1 and not (r["updated"] == 1.0 and all(
+                math.isfinite(x) for x in losses)):
+            fails.append((r["iter"], "update"))
+        if {r["lr_at_floor"], r["lr_at_ceiling"]} - {0.0, 1.0}:
+            fails.append((r["iter"], "canaries"))
+    ev = [r for r in recs if r["kind"] == "eval"]
+    if not (len(ev) == 1 and math.isfinite(ev[0]["elo"])
+            and ev[0]["games"] == TRAIN_EVAL_GAMES):
+        fails.append(("eval", ev))
+    mgr = ckpt.make_manager(os.path.join(workdir, "ckpt"))
+    if mgr.all_steps() != [2, 4]:
+        fails.append(("ckpt steps", mgr.all_steps()))
+    _, cfg, _ = ckpt.read_meta(mgr)
+    # best_model: the live weights, and an equal f32 forward
+    bp, bbs, bcfg = ckpt.load_model(os.path.join(workdir, "best_model"))
+    live_p, live_s = carry.train_state.net.to_flax()
+    weights_equal = flax_trees_equal(bp, live_p) and flax_trees_equal(
+        bbs, live_s)
+    f32 = dataclasses.replace(cfg.net, compute_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    st = vector.init(cfg.env, 256, "cuda")
+    for _ in range(20):
+        u = torch.rand(st.board.shape, generator=gen, device="cuda")
+        st = vector.step(cfg.env, st, torch.where(st.board == 0, u, -1.0)
+                         .argmax(-1).int())
+    feats = vector.state_features(cfg.env, st)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        best_out = PolicyValueNet.from_flax(bcfg.env, f32, bp, bbs,
+                                            "cuda")(feats)
+        live_out = PolicyValueNet.from_flax(cfg.env, f32, live_p, live_s,
+                                            "cuda")(feats)
+    forward_equal = all(torch.equal(x, y) for x, y in zip(best_out,
+                                                          live_out))
+    if not (weights_equal and forward_equal):
+        fails.append(("best_model", weights_equal, forward_equal))
+    if not (launches > 0 and variants["resident"] == launches):
+        fails.append(("launches", launches, variants))
+    covered = {b for b, s, c, dt, _ in SHAPES
+               if (s, c, dt) == (15, 64, torch.bfloat16)}
+    seen = sorted({b[0] for b in batches})
+    missing = [b for b in seen if b not in covered]
+    if missing:
+        fails.append(("batches without a kernel_vs_plain row", missing))
+    out = dict(
+        argv=argv, reduced=TRAIN_REDUCED, rc=rc, seconds=seconds,
+        records=seq, iter_seconds=[r["iter_seconds"] for r in iters],
+        env_steps_per_s=[r["env_steps_per_s"] for r in iters],
+        losses=[r["loss"] for r in iters],
+        eval=ev[0] if ev else None, eval_seconds=evals,
+        eval_search_seconds={k: sum(v) for k, v in sides.items()},
+        eval_moves={k: len(v) for k, v in sides.items()},
+        save_seconds=saves,
+        checkpoint_step_bytes=dir_bytes(mgr.step_dir(4)),
+        best_model_weights_equal=weights_equal,
+        best_model_f32_forward_equal=forward_equal,
+        resblock_launches=launches, variant_launches=variants,
+        resblock_batches=seen, peak_bytes=peak, nvidia_smi=nvidia_smi(),
+        card=card, failed_checks=fails, ok=not fails)
+    emit("train_loop", **out)
+    if fails:
+        raise AssertionError(f"train loop phase failed its checks: {fails}")
+    return dict(workdir=workdir, carry=carry, cfg=cfg, launches=launches,
+                peak_bytes=peak, base_bytes=base)
+
+
+def phase_train_resume(run: dict, card: str):
+    """Step 4 restored onto the device into a fresh carry: every tensor,
+    the ring's ptr/size, has_pending and the generator state bit-equal to
+    the carry `train` returned. Then `cli train --resume --iters 6`:
+    records resume at 4, iterations 4 and 5 updating with finite losses,
+    a checkpoint at 6; every resblock launch resident."""
+    from alphafive_tpu_torch import cli, parallel
+    from alphafive_tpu_torch.train import checkpoint as ckpt
+    workdir, cfg = run["workdir"], run["cfg"]
+    mgr = ckpt.make_manager(os.path.join(workdir, "ckpt"))
+    fresh = parallel.init_carry(cfg, "cuda", seed=cfg.train.seed + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, back, _, _ = ckpt.restore(mgr, fresh)
+    torch.cuda.synchronize()
+    restore_seconds = time.perf_counter() - t0
+    diffs = carry_diffs(back, run.pop("carry"))
+    del fresh, back
+    fails = [("restore", step, diffs)] if diffs or step != 4 else []
+    before = len(records(workdir))
+    argv = [*TRAIN_ARGV, "--workdir", workdir, "--iters", "6", "--resume"]
+    rb.resblock_launches = 0
+    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, variants = rb.resblock_launches, dict(rb.variant_launches)
+    recs = records(workdir)[before:]
+    seq = [(r["kind"], r.get("iter")) for r in recs]
+    if rc != 0 or seq != [("resume", 4), ("iter", 4), ("iter", 5),
+                          ("checkpoint", 6)]:
+        fails.append(("records", seq))
+    iters = [r for r in recs if r["kind"] == "iter"]
+    for r in iters:
+        if not (r["updated"] == 1.0 and all(math.isfinite(r[k]) for k in (
+                "loss", "policy_loss", "value_loss"))):
+            fails.append((r["iter"], "update"))
+    if not (launches > 0 and variants["resident"] == launches):
+        fails.append(("launches", launches, variants))
+    emit("train_resume", restored_step=step, restore_seconds=restore_seconds,
+         carry_bit_equal=not diffs, differing=diffs, argv=argv, rc=rc,
+         seconds=seconds, records=seq,
+         iter_seconds=[r["iter_seconds"] for r in iters],
+         losses=[r["loss"] for r in iters], resblock_launches=launches,
+         variant_launches=variants, steps=mgr.all_steps(),
+         nvidia_smi=nvidia_smi(), card=card, failed_checks=fails,
+         ok=not fails)
+    if fails:
+        raise AssertionError(f"train resume phase failed its checks: {fails}")
+
+
+def phase_export(run: dict, card: str):
+    """`cli export` of the latest checkpoint (6): the bundle loads with
+    the checkpoint's weights, config.json carries the iteration and the
+    learner step; `cli._load_model` on the workdir takes the checkpoint
+    path with the same weights."""
+    from alphafive_tpu_torch import cli
+    from alphafive_tpu_torch.train import checkpoint as ckpt
+    workdir = run["workdir"]
+    out_dir = os.path.join(workdir, "export")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["export", "--workdir", workdir, "--out", out_dir])
+    seconds = time.perf_counter() - t0
+    mgr = ckpt.make_manager(os.path.join(workdir, "ckpt"))
+    ts, saved = ckpt.restore_train_state(mgr)
+    want = ts.net.to_flax()
+    params, stats, _ = ckpt.load_model(out_dir)
+    with open(os.path.join(out_dir, "config.json")) as f:
+        meta = json.load(f)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        lp, ls, net_cfg = cli._load_model(saved, workdir)
+    checks = {
+        "rc": rc == 0,
+        "bundle_weights": flax_trees_equal(params, want[0])
+        and flax_trees_equal(stats, want[1]),
+        "meta": (meta["iteration"], meta["train_step"]) == (6, ts.step),
+        "load_model_took_the_checkpoint":
+            "restored checkpoint step 6" in err.getvalue()
+            and net_cfg == saved.net and flax_trees_equal(lp, want[0])
+            and flax_trees_equal(ls, want[1])}
+    fails = [k for k, v in checks.items() if not v]
+    emit("export", seconds=seconds, bundle_bytes=dir_bytes(out_dir),
+         iteration=meta["iteration"], train_step=meta["train_step"],
+         lr_scale=meta["lr_scale"], checks=checks, card=card,
+         nvidia_smi=nvidia_smi(), ok=not fails)
+    if fails:
+        raise AssertionError(f"export phase failed its checks: {fails}")
+
+
+def phase_memory_guard(run: dict, card: str):
+    """utils/memory.py's estimate for the train run's config beside the
+    device memory it allocated at its peak over train_loop (above what
+    was allocated before): the estimate must not be below the peak."""
+    from alphafive_tpu_torch.utils import memory
+    cfg = run["cfg"]
+    terms = memory.estimate_terms(cfg)
+    est = sum(terms.values())
+    peak = run["peak_bytes"]
+    emit("memory_guard", preset=cfg.name, estimate_bytes=est,
+         estimate_terms=terms, measured_peak_bytes=peak,
+         allocated_before_bytes=run["base_bytes"],
+         estimate_over_peak=est / peak,
+         budget_bytes=memory.device_budget("cuda"),
+         total_memory_bytes=torch.cuda.get_device_properties(0).total_memory,
+         nvidia_smi=nvidia_smi(), card=card, ok=est >= peak)
+    if est < peak:
+        raise AssertionError(f"memory estimate {est} below the measured "
+                             f"peak {peak}")
+
+
+
 def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1078,6 +1435,14 @@ def main() -> int:
         params, stats, saved_cfg, card)
     phase_iteration_breakdown(carry, train_cfg, card)
     del carry
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        run = phase_train_loop(workdir, card)
+        phase_train_resume(run, card)
+        phase_export(run, card)
+        phase_memory_guard(run, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     sel_rows = phase_select_kernel_vs_plain(latency)
     phase_search_packed(card)
     sel_launches = phase_eval(card)
@@ -1091,10 +1456,12 @@ def main() -> int:
         "name": "fused_resblock", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
-        "launches": rb_launches + lowsim_launches + train_launches,
+        "launches": (rb_launches + lowsim_launches + train_launches
+                     + run["launches"]),
         "launches_chip_15x15": rb_launches,
         "launches_lowsim_15x15": lowsim_launches,
         "launches_train_lowsim_15x15": train_launches,
+        "launches_train_loop": run["launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

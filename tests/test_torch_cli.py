@@ -7,14 +7,18 @@ import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from alphafive_tpu import cli as jcli
 from alphafive_tpu.config import get_preset as j_get_preset
-from alphafive_tpu_torch import cli
+from alphafive_tpu.train import checkpoint as jckpt
+from alphafive_tpu_torch import cli, parallel
 from alphafive_tpu_torch.config import get_preset
 from alphafive_tpu_torch.ops import select as ps
+from alphafive_tpu_torch.train import checkpoint as ckpt
+from alphafive_tpu_torch.utils.elo import LadderState
 
 torch.set_num_threads(1)
 
@@ -80,12 +84,16 @@ def test_bench_selfplay_and_unported_commands(capsys):
                    "--plies", "1", "--set", "train.num_envs=2"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["device"] == "cpu" and out["sims_per_s"] > 0
-    for argv in (["train"], ["export", "--out", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main([*argv, "--preset", "tiny_test", "--device", "cpu"])
+    # the multi-host flags name the multi-GPU item; one device otherwise
+    for flags in (["--multihost"], ["--coordinator", "localhost:1"],
+                  ["--num-processes", "2"], ["--process-id", "0"]):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            cli.main(["train", *flags, "--preset", "tiny_test", "--device",
+                      "cpu"])
     if not torch.cuda.is_available():
-        with pytest.raises(SystemExit):
-            cli.main(["eval", "--preset", "tiny_test"])
+        for argv in (["eval"], ["train"], ["export", "--out", "x"]):
+            with pytest.raises(SystemExit):
+                cli.main([*argv, "--preset", "tiny_test"])
 
 
 # the keys `python -m alphafive_tpu.cli bench --mode iteration` prints
@@ -128,6 +136,16 @@ def test_pretrained_dir_matches_jax():
         get_preset("chip_15x15"))) == "15x15_lowsim"
 
 
+def assert_trees_equal(got, want, path=""):
+    if isinstance(want, (dict, tuple)):
+        items = want.items() if isinstance(want, dict) else enumerate(want)
+        assert len(got) == len(want), path
+        for k, v in items:
+            assert_trees_equal(got[k], v, f"{path}/{k}")
+    else:
+        np.testing.assert_array_equal(np.asarray(got), want, err_msg=path)
+
+
 def test_load_model(tmp_path):
     cfg = get_preset("train_9x9")
     bundle = cli._pretrained_dir(cfg)
@@ -138,10 +156,53 @@ def test_load_model(tmp_path):
     # an empty workdir: a fresh net from the preset, never the bundle
     fresh = cli._load_model(cfg, str(tmp_path))
     assert fresh[2] == cfg.net
+    # a step directory that is not a checkpoint is refused, never skipped
     (tmp_path / "ckpt" / "100").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="not a checkpoint"):
         cli._load_model(cfg, str(tmp_path))
+    # a training checkpoint: restored against its own saved config
+    (tmp_path / "ckpt" / "100").rmdir()
+    small = cfg.replace(
+        net=dataclasses.replace(cfg.net, blocks=1, channels=16),
+        train=dataclasses.replace(cfg.train, num_envs=2),
+        replay=dataclasses.replace(cfg.replay, capacity=64))
+    carry = parallel.init_carry(small, "cpu")
+    ckpt.save(ckpt.make_manager(str(tmp_path / "ckpt")), 100, carry, small,
+              LadderState())
+    params, stats, net_cfg = cli._load_model(cfg, str(tmp_path))
+    assert net_cfg == small.net
+    assert_trees_equal((params, stats), carry.train_state.net.to_flax())
     wrong = dataclasses.replace(cfg, env=dataclasses.replace(cfg.env,
                                                              board_size=15))
     with pytest.raises(ValueError, match="board"):
         cli._load_model(wrong, bundle)
+
+
+def test_train_export_and_eval_a_workdir(tmp_path, capsys):
+    """`train` on tiny_test writes ckpt/ and metrics.jsonl, `--resume`
+    continues it, `export` writes a bundle that JAX's load_model reads
+    bit-equal, and `eval --workdir` plays the checkpoint."""
+    wd, out = str(tmp_path / "run"), str(tmp_path / "model")
+    common = ["--preset", "tiny_test", "--device", "cpu", "--workdir", wd,
+              "--set", "train.selfplay_plies_per_iter=6",
+              "--set", "replay.min_fill=8", "--set", "replay.batch_size=8"]
+    assert cli.main(["train", *common, "--iters", "2"]) == 0
+    assert cli.main(["train", *common, "--iters", "3", "--resume"]) == 0
+    assert ckpt.make_manager(f"{wd}/ckpt").all_steps() == [2, 3]
+    with open(f"{wd}/metrics.jsonl") as f:
+        kinds = [json.loads(line)["kind"] for line in f]
+    assert kinds == ["iter", "iter", "resume", "iter"]
+    assert cli.main(["export", "--workdir", wd, "--out", out, "--device",
+                     "cpu"]) == 0
+    with open(f"{out}/config.json") as f:
+        meta = json.load(f)
+    assert (meta["iteration"], meta["train_step"]) == (3, 2)
+    ts, _ = ckpt.restore_train_state(ckpt.make_manager(f"{wd}/ckpt"),
+                                     device="cpu")
+    jp, js, _ = jckpt.load_model(out)
+    assert_trees_equal((jp, js), ts.net.to_flax())
+    capsys.readouterr()
+    assert cli.main(["eval", *common[:4], "--workdir", wd, "--games", "2",
+                     "--anchor-rollouts", "4", *PACKED]) == 0
+    res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(res) == JAX_EVAL_KEYS and res["games"] == 2

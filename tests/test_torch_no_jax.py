@@ -1,5 +1,7 @@
 """The port and chip_smoke.py import nothing of JAX: the GPU host has none
-of jax, flax, msgpack, optax or orbax, and ``alphafive_tpu`` imports jax."""
+of jax, flax, msgpack, optax or orbax, and ``alphafive_tpu`` imports jax.
+Nor do they import safetensors or tensorboardX, which the GPU host lacks
+too."""
 
 import ast
 import glob
@@ -9,7 +11,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "orbax",
-             "alphafive_tpu"}
+             "alphafive_tpu", "safetensors", "tensorboardX"}
 FILES = sorted(glob.glob(os.path.join(ROOT, "alphafive_tpu_torch", "**",
                                       "*.py"), recursive=True)
                + [os.path.join(ROOT, "chip_smoke.py")])
@@ -40,6 +42,8 @@ def test_no_jax_imports(path):
 def test_scan_catches_a_jax_import(tmp_path):
     p = tmp_path / "m.py"
     p.write_text("import os\nfrom alphafive_tpu.env import vector\n"
-                 "import jax.numpy as jnp\n")
-    assert {"alphafive_tpu", "jax"} <= set(imported_roots(str(p)))
+                 "import jax.numpy as jnp\n"
+                 "def f():\n    from safetensors.torch import save_file\n")
+    assert {"alphafive_tpu", "jax", "safetensors"} <= set(
+        imported_roots(str(p))) & FORBIDDEN
     assert "alphafive_tpu_torch" not in FORBIDDEN
