@@ -5,8 +5,9 @@
 ``run`` times whole self-play chunks — MCTS with batched net leaf
 evaluation, move sampling, env stepping, auto-reset — and
 ``run_iteration`` whole actor-learner iterations (self-play chunk, ring
-write, learner steps), on one device, behind ``torch.cuda.synchronize()``
-and a read of the results on the host. The first call (kernel build and
+write, learner steps), on one device or, under a process group, on every
+rank (``cli bench --mode iteration --multihost``), behind
+``torch.cuda.synchronize()`` and a read of the results on the host. The first call (kernel build and
 warm-up) is reported separately as ``compile_seconds``. Result keys are
 the JAX benchmark's plus ``impl`` and ``device``.
 
@@ -22,10 +23,11 @@ from typing import Dict, Optional
 import torch
 
 from alphafive_tpu_torch import parallel
-from alphafive_tpu_torch.config import RunConfig
+from alphafive_tpu_torch.config import MeshConfig, RunConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.models.evaluator import net_evaluator
 from alphafive_tpu_torch.models.resnet import init_params
+from alphafive_tpu_torch.parallel import distributed
 from alphafive_tpu_torch.train import actor
 
 
@@ -42,19 +44,30 @@ def run_iteration(cfg: RunConfig, warmup: int = 1, repeats: int = 3,
                   device: str = "cuda", params=None, batch_stats=None,
                   seed: int = 0, observe=None) -> Dict:
     """Benchmark the full actor-learner iteration
-    (``parallel.make_train_iteration``) on one device: one first
-    iteration, `warmup` more, then the best of `repeats`. Each is timed
-    to ``torch.cuda.synchronize()`` after its metrics were read on the
-    host. `params`/`batch_stats` are flax-layout numpy trees (a
-    bundle's); by default a random net from `seed`, which also seeds the
-    carry's generator (JAX's bench hands every iteration the same key;
-    here the generator runs on). `observe(carry, metrics, seconds)`, when
-    given, sees each iteration."""
+    (``parallel.make_train_iteration``): one first iteration, `warmup`
+    more, then the best of `repeats`. Each is timed to
+    ``torch.cuda.synchronize()`` after its metrics were read on the host.
+    Under a process group every rank runs its shard and the metrics'
+    all-reduce ends each iteration on every rank together; ``mesh.data``
+    is clamped to the world, as JAX's bench clamps it to the device
+    count, and must then equal it. `params`/`batch_stats` are
+    flax-layout numpy trees (a bundle's); by default a random net from
+    `seed`, which also seeds the carry's generator (JAX's bench hands
+    every iteration the same key; here the generator runs on).
+    `observe(carry, metrics, seconds)`, when given, sees each
+    iteration."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
-    carry = parallel.init_carry(cfg, dev, params, batch_stats, seed)
-    iteration = parallel.make_train_iteration(cfg)
+    world = distributed.world()
+    n = min(cfg.mesh.data, world)
+    if n != world:
+        raise ValueError(f"mesh.data={cfg.mesh.data} under a world of "
+                         f"{world}: pass --set mesh.data={world}")
+    cfg = cfg.replace(mesh=MeshConfig(data=n))
+    group = distributed.group()
+    carry = parallel.init_carry(cfg, dev, params, batch_stats, seed, group)
+    iteration = parallel.make_train_iteration(cfg, group)
 
     def timed():
         t0 = time.perf_counter()
@@ -85,11 +98,11 @@ def run_iteration(cfg: RunConfig, warmup: int = 1, repeats: int = 3,
         "num_simulations": cfg.mcts.num_simulations,
         "plies": cfg.train.selfplay_plies_per_iter,
         "learner_steps": cfg.train.learner_steps_per_iter,
-        "chips": 1,
+        "chips": world,
         "seconds": best,
         "compile_seconds": compile_s,
         "env_steps_per_s": env_steps / best,
-        "env_steps_per_s_per_chip": env_steps / best,
+        "env_steps_per_s_per_chip": env_steps / best / world,
         "sims_per_s": sims / best,
         "updated": metrics["updated"],
     }

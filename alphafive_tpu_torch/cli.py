@@ -5,6 +5,8 @@ of ``alphafive_tpu/cli.py``). Usage:
         --set net.use_pallas=true --init-from pretrained/15x15_lowsim \\
         --workdir runs/lowsim
     python -m alphafive_tpu_torch.cli train ... --resume
+    torchrun --nproc-per-node 4 -m alphafive_tpu_torch.cli train \\
+        --multihost --preset host_15x15 --workdir runs/host
     python -m alphafive_tpu_torch.cli export --workdir runs/lowsim \\
         --out runs/lowsim_model
     python -m alphafive_tpu_torch.cli eval  --preset chip_15x15 \\
@@ -14,6 +16,8 @@ of ``alphafive_tpu/cli.py``). Usage:
     python -m alphafive_tpu_torch.cli bench --preset chip_15x15
     python -m alphafive_tpu_torch.cli bench --mode iteration \\
         --preset train_lowsim_15x15 --set net.use_pallas=true
+    torchrun --nproc-per-node 4 -m alphafive_tpu_torch.cli bench \\
+        --mode iteration --multihost --preset host_15x15
 
 The flags are the JAX CLI's, except that ``--platform`` is ``--device``
 (default ``cuda``; it refuses to run when CUDA is absent, ``--device cpu``
@@ -21,8 +25,18 @@ runs on the host). ``--set a.b=c`` overrides any config field. ``train``
 and ``bench`` on the card first run the memory guard (``utils/memory.py``)
 unless ``--allow-oversubscribe``. ``--workdir`` loads the latest training
 checkpoint under ``<workdir>/ckpt`` (the port's own format,
-``train/checkpoint.py``) or an exported bundle. The multi-host flags of
-``train`` raise: the port trains on one device.
+``train/checkpoint.py``) or an exported bundle.
+
+``--multihost`` on ``train`` and ``bench --mode iteration`` joins the
+process group (``parallel/distributed.py``): one process a GPU, from
+torchrun's environment or from ``--coordinator host:port --num-processes
+N --process-id r`` given to every process. The world takes the place of
+``mesh.data`` (``bench`` clamps ``mesh.data`` to it, as JAX's bench clamps
+it to the device count), the memory guard sizes each rank's share, and
+rank 0 alone logs and prints. ``--debug-nans`` turns on
+``torch.autograd``'s anomaly mode, under which the learner and the
+iteration raise ``FloatingPointError`` on a non-finite loss, averaged
+gradient or metric (the counterpart of ``jax_debug_nans``).
 """
 
 from __future__ import annotations
@@ -34,10 +48,7 @@ import sys
 
 import torch
 
-# ROADMAP Queue 1 items of the parts that are not ported yet
-_UNPORTED = {
-    "multihost": "multi-GPU training (ROADMAP Queue 1 item 15)",
-}
+from alphafive_tpu_torch.parallel import distributed
 
 
 def main(argv=None):
@@ -51,12 +62,20 @@ def main(argv=None):
                         help="cuda (default; refused without CUDA) or cpu")
         sp.add_argument("--num-cpu-devices", type=int, default=8,
                         help="accepted for the JAX CLI's command lines; "
-                             "torch runs on one device")
+                             "torch runs one device a process")
         sp.add_argument("--set", action="append", default=[],
                         metavar="SEC.FIELD=VAL", dest="overrides")
         sp.add_argument("--debug-nans", action="store_true",
-                        help="accepted for the JAX CLI's command lines; the "
-                             "port has no NaN sanitizer yet")
+                        help="autograd anomaly mode, and raise on a "
+                             "non-finite loss, gradient or metric")
+
+    def multihost(sp):
+        sp.add_argument("--multihost", action="store_true",
+                        help="join the process group: one process a GPU")
+        sp.add_argument("--coordinator", default=None,
+                        help="rank 0's host:port (default: torchrun's)")
+        sp.add_argument("--num-processes", type=int, default=None)
+        sp.add_argument("--process-id", type=int, default=None)
 
     sp = sub.add_parser("train", help="run the actor-learner pipeline")
     common(sp)
@@ -65,10 +84,7 @@ def main(argv=None):
     sp.add_argument("--resume", action="store_true")
     sp.add_argument("--profile-iters", type=int, default=0)
     sp.add_argument("--init-from", default=None, metavar="MODEL_DIR")
-    sp.add_argument("--multihost", action="store_true")
-    sp.add_argument("--coordinator", default=None)
-    sp.add_argument("--num-processes", type=int, default=None)
-    sp.add_argument("--process-id", type=int, default=None)
+    multihost(sp)
 
     sp = sub.add_parser("eval", help="evaluate a model vs pure MCTS")
     common(sp)
@@ -89,28 +105,40 @@ def main(argv=None):
     sp.add_argument("--plies", type=int, default=8)
     sp.add_argument("--mode", choices=["selfplay", "iteration"],
                     default="selfplay")
+    multihost(sp)
 
     sp = sub.add_parser("export", help="export a workdir checkpoint")
     common(sp)
     sp.add_argument("--out", required=True)
 
     args = p.parse_args(argv)
-    if args.cmd == "train" and (args.multihost or args.coordinator
-                                or args.num_processes is not None
-                                or args.process_id is not None):
-        raise NotImplementedError(
-            f"--multihost/--coordinator/--num-processes/--process-id: "
-            f"{_UNPORTED['multihost']}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: CUDA is not available "
                          "(use --device cpu to run on the host)")
+    multi = getattr(args, "multihost", False)
+    if multi and args.cmd == "bench" and args.mode != "iteration":
+        raise SystemExit("bench --multihost times --mode iteration")
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
 
     from alphafive_tpu_torch.config import apply_overrides, get_preset
     cfg = apply_overrides(get_preset(args.preset), args.overrides)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    if multi:
+        distributed.initialize(args.coordinator, args.num_processes,
+                               args.process_id, device=str(device))
+    try:
+        _run(cfg, args, device)
+    finally:
+        if multi:
+            distributed.shutdown()
+    return 0
+
+
+def _run(cfg, args, device) -> None:
     if args.cmd in ("train", "bench"):
         _check_device_budget(cfg, args, device)
     if args.cmd == "train":
@@ -131,18 +159,18 @@ def main(argv=None):
         else:
             out = selfplay_bench.run(cfg, plies=args.plies,
                                      device=str(device))
-        print(json.dumps(out))
-    return 0
+        if distributed.is_primary():
+            print(json.dumps(out))
 
 
 def _check_device_budget(cfg, args, device) -> None:
-    """Refuse a run on the card whose estimated footprint exceeds the
-    budget (``utils/memory.py``), unless ``--allow-oversubscribe``. The
-    CPU (host memory) is not guarded."""
+    """Refuse a run on the card whose estimated footprint per rank exceeds
+    the budget (``utils/memory.py``), unless ``--allow-oversubscribe``.
+    The CPU (host memory) is not guarded."""
     if args.allow_oversubscribe or device.type == "cpu":
         return
     from alphafive_tpu_torch.utils.memory import budget_error
-    err = budget_error(cfg, 1, device=device)
+    err = budget_error(cfg, distributed.world(), device=device)
     if err is not None:
         raise SystemExit(err)
 

@@ -19,7 +19,8 @@ as the JAX package's orbax checkpoints do, so a resume is bit-reproducible.
 Orbax cannot be read or written without JAX, so the port has a format of
 its own, one directory a step::
 
-    <dir>/<step>/meta.json   config JSON, ladder JSON, iteration (+ extra)
+    <dir>/<step>/meta.json   config JSON, ladder JSON, iteration, the
+                             world size that wrote it (+ extra)
     <dir>/<step>/model.pt    the train state: the net's parameters and
                              buffers, the optimizer's count and moments,
                              the step and lr_scale
@@ -33,6 +34,16 @@ steps are kept. ``restore_train_state`` reads ``meta.json`` and
 ``model.pt`` alone, so a checkpoint written on the card restores on the
 CPU. A JAX (orbax) step directory is refused with a pointer to ``cli
 export``: the msgpack bundle is the format both packages share.
+
+Under a process group (``parallel/distributed.py``) ``save`` and
+``restore`` are collective, as orbax's are: rank 0 writes ``meta.json``
+and ``model.pt`` (the train state is replicated) and each rank ``r``
+writes its envs, ring, staging buffer and generator as
+``carry.rank{r}.pt``; the rename follows a barrier, so a step exists only
+with every shard in it. A world of one writes ``carry.pt``, the
+one-device layout. The shards are not re-sharded: restoring at another
+world size raises and names both. The step directories must lie on a
+filesystem every rank sees.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import numpy as np
 import torch
 
 from alphafive_tpu_torch.config import RunConfig
+from alphafive_tpu_torch.parallel import distributed
 from alphafive_tpu_torch.utils.elo import LadderState
 
 _NDARRAY_EXT = 1  # flax serialization._MsgpackExtType.ndarray
@@ -359,32 +371,48 @@ def _write_durably(path: str, write) -> None:
         os.fsync(f.fileno())
 
 
+def _shard(world: int, rank: int) -> str:
+    """The file of a rank's carry shard: the one-device name at world 1."""
+    return CARRY if world == 1 else f"carry.rank{rank}.pt"
+
+
 def save(mgr: CheckpointManager, iteration: int, carry, cfg: RunConfig,
          ladder: LadderState, extra: Optional[Dict[str, Any]] = None
          ) -> bool:
-    """Write step `iteration` of `carry` (a ``parallel.TrainCarry``), then
-    drop all but the newest ``mgr.max_to_keep`` steps. A step at or below
-    the latest saved one is skipped (orbax's rule) and False returned."""
-    latest = mgr.latest_step()
+    """Write step `iteration` of `carry` (a ``parallel.TrainCarry``, this
+    rank's), then drop all but the newest ``mgr.max_to_keep`` steps. A
+    step at or below the latest saved one is skipped (orbax's rule) and
+    False returned. Collective under a process group: every rank calls
+    it; rank 0 decides the skip, writes the metadata and the train state
+    and commits the step once every shard is written."""
+    world, rank = distributed.world(), distributed.rank()
+    latest = distributed.broadcast_object(mgr.latest_step() if rank == 0
+                                          else None)
     if latest is not None and latest >= iteration:
         return False
     final = mgr.step_dir(iteration)
     tmp = final + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    meta = {"config": cfg.to_json(),
-            "ladder": json.dumps(dataclasses.asdict(ladder)),
-            "iteration": iteration, **(extra or {})}
-    _write_durably(os.path.join(tmp, META),
-                   lambda f: f.write(json.dumps(meta).encode()))
-    _write_durably(os.path.join(tmp, MODEL),
-                   lambda f: torch.save(_train_state_dict(carry.train_state),
-                                        f))
-    _write_durably(os.path.join(tmp, CARRY),
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    distributed.barrier("checkpoint-open")
+    _write_durably(os.path.join(tmp, _shard(world, rank)),
                    lambda f: torch.save(_carry_dict(carry), f))
-    os.rename(tmp, final)
-    for step in mgr.all_steps()[:-mgr.max_to_keep]:
-        shutil.rmtree(mgr.step_dir(step))
+    if rank == 0:
+        meta = {"config": cfg.to_json(),
+                "ladder": json.dumps(dataclasses.asdict(ladder)),
+                "iteration": iteration, "world": world, **(extra or {})}
+        _write_durably(os.path.join(tmp, META),
+                       lambda f: f.write(json.dumps(meta).encode()))
+        _write_durably(os.path.join(tmp, MODEL),
+                       lambda f: torch.save(
+                           _train_state_dict(carry.train_state), f))
+    distributed.barrier("checkpoint-written")
+    if rank == 0:
+        os.rename(tmp, final)
+        for step in mgr.all_steps()[:-mgr.max_to_keep]:
+            shutil.rmtree(mgr.step_dir(step))
+    distributed.barrier("checkpoint-committed")
     return True
 
 
@@ -408,12 +436,16 @@ def _step(mgr: CheckpointManager, iteration: Optional[int]) -> int:
     return step
 
 
+def _read_meta(mgr: CheckpointManager, step: int) -> Dict[str, Any]:
+    with open(os.path.join(mgr.step_dir(step), META)) as f:
+        return json.load(f)
+
+
 def read_meta(mgr: CheckpointManager, iteration: Optional[int] = None
               ) -> Tuple[int, RunConfig, LadderState]:
     """(iteration, RunConfig, LadderState) of a checkpoint's metadata
     (the latest step unless `iteration` is given)."""
-    with open(os.path.join(mgr.step_dir(_step(mgr, iteration)), META)) as f:
-        meta = json.load(f)
+    meta = _read_meta(mgr, _step(mgr, iteration))
     return (int(meta["iteration"]), RunConfig.from_json(meta["config"]),
             _ladder_from_dict(json.loads(meta["ladder"])))
 
@@ -457,14 +489,23 @@ def restore(mgr: CheckpointManager, carry_like, iteration: Optional[int] = None
             ) -> Tuple[int, Any, RunConfig, LadderState]:
     """Restore a step (the latest unless `iteration` is given) into
     `carry_like`, a carry of the same configuration, in place on its
-    device. Returns (iteration, carry, saved RunConfig, LadderState). The
-    generator's state restores onto a generator of the device type that
-    saved it."""
+    device: the train state and this rank's shard. Returns (iteration,
+    carry, saved RunConfig, LadderState). The generator's state restores
+    onto a generator of the device type that saved it. A step written by
+    another world size raises."""
     step = _step(mgr, iteration)
+    world, rank = distributed.world(), distributed.rank()
+    saved_world = int(_read_meta(mgr, step).get("world", 1))
+    if saved_world != world:
+        raise ValueError(
+            f"{mgr.step_dir(step)} holds the shards of a world of "
+            f"{saved_world} rank(s); this run has a world of {world}. "
+            f"Resume with {saved_world} rank(s): checkpoints are not "
+            "re-sharded")
     it, cfg, ladder = read_meta(mgr, step)
     _load_train_state(carry_like.train_state,
                       _load(mgr, step, MODEL, "cpu"))
-    saved = _load(mgr, step, CARRY, "cpu")
+    saved = _load(mgr, step, _shard(world, rank), "cpu")
     c = carry_like
     _copy_into(_fields(c.env_state), saved["env_state"], "env_state")
     _copy_into(_fields(c.buffer), saved["buffer"], "buffer")

@@ -180,19 +180,57 @@ def optimizer_update(cfg: TrainConfig, st: OptState, params, is_kernel,
     return u, norm
 
 
+def check_finite(named) -> None:
+    """Raise ``FloatingPointError`` naming the first of the (name,
+    tensor) pairs `named` that holds a NaN or an infinity (one device
+    read for all of them)."""
+    named = list(named)
+    ok = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
+    if not all(ok):
+        raise FloatingPointError(f"non-finite {named[ok.index(False)][0]}")
+
+
 def train_step(env_cfg: EnvConfig, net_cfg: NetConfig,
-               train_cfg: TrainConfig, ts: TrainState, batch
+               train_cfg: TrainConfig, ts: TrainState, batch, group=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One learner step on `batch`, in place on `ts`; returns `ts` and
     the aux metrics (0-dim tensors) with ``grad_norm`` (the pre-clip
-    global norm) and ``lr_scale``."""
+    global norm) and ``lr_scale``.
+
+    With a process `group` the gradients, the updated batch-norm running
+    statistics and the aux metrics are averaged over its ranks in one
+    all-reduce before the clip, where JAX's ``train_step`` pmeans them:
+    ``grad_norm``, the clip and the update read the averaged gradients,
+    so every rank applies the same update. The forward normalises by the
+    rank's own batch statistics (flax's ``BatchNorm`` has no axis name):
+    neither ``SyncBatchNorm`` nor DDP, whose buffer broadcast copies rank
+    0's statistics where JAX averages them.
+
+    Under ``torch.autograd``'s anomaly mode (``cli --debug-nans``) a
+    non-finite loss, or averaged gradient, raises ``FloatingPointError``
+    naming it."""
     params = list(ts.net.parameters())
+    debug = torch.is_anomaly_enabled()
     loss, (new_bs, aux) = loss_fn(ts.net, batch, train_cfg)
-    grads = torch.autograd.grad(loss, params)
+    if debug:
+        check_finite([("loss", loss)])
+    grads = list(torch.autograd.grad(loss, params))
+    if group is not None:
+        from alphafive_tpu_torch.parallel.distributed import all_reduce_mean
+        stats = [t for pair in new_bs for t in pair]
+        keys = list(aux)
+        out = all_reduce_mean(grads + stats + [aux[k] for k in keys], group)
+        n, m = len(grads), len(grads) + len(stats)
+        grads = out[:n]
+        new_bs = list(zip(out[n:m:2], out[n + 1:m:2]))
+        aux = dict(zip(keys, out[m:]))
+    if debug:
+        check_finite((f"gradient of {name}", g) for (name, _), g in
+                     zip(ts.net.named_parameters(), grads))
     kernels = {id(k) for k in ts.net.kernels()}
     updates, aux["grad_norm"] = optimizer_update(
         train_cfg, ts.opt_state, params, [id(p) in kernels for p in params],
-        list(grads), ts.lr_scale)
+        grads, ts.lr_scale)
     with torch.no_grad():
         torch._foreach_add_(params, updates)
     aux["lr_scale"] = ts.lr_scale.clone()

@@ -13,6 +13,16 @@ net-vs-net match against ``<workdir>/best_model`` (``_eval_vs_best``).
 A promotion saves the full state to ``<workdir>/best`` and exports
 ``best_model/``. A final checkpoint is written at ``total``.
 
+Under a process group (``parallel/distributed.py``; ``cli train
+--multihost``) every rank runs this loop on its shard of the envs and the
+ring (``parallel/mesh.py``), and rank 0 alone writes ``metrics.jsonl``,
+the sidecar, ``best_model/`` and the profile; the checkpoints are
+collective (``train/checkpoint.py``). Rank 0 alone plays the eval and
+decides the gate; its ladder, Elo and decision are broadcast on the host
+group before any save, so float differences cannot split the ranks, and
+the other ranks wait for them there (``distributed.HOST_TIMEOUT``), with
+no NCCL work in flight.
+
 Differences from the JAX loop, by design:
 
 * randomness: the carry's generator drives self-play and the learner
@@ -25,8 +35,8 @@ Differences from the JAX loop, by design:
   recomputed from its stored score and games at its level, so an entry
   rated under the old fixed clamp cannot stall promotion (the JAX loop
   keeps it as stored);
-* one process: the best gate decides on its own, with nothing to
-  broadcast (ROADMAP item 15 is the multi-GPU loop);
+* the eval runs on rank 0 alone (JAX's SPMD program runs it on every
+  process, each with the same result);
 * a profile still running when the loop ends is stopped and written.
 """
 
@@ -38,13 +48,14 @@ import os
 import time
 from typing import Optional
 
-import numpy as np
 import torch
 
 from alphafive_tpu_torch import parallel
 from alphafive_tpu_torch.config import MCTSConfig, RunConfig
 from alphafive_tpu_torch.models.evaluator import (net_evaluator,
                                                   rollout_evaluator)
+from alphafive_tpu_torch.parallel import distributed
+from alphafive_tpu_torch.parallel.mesh import broadcast_train_state, mixed_seed
 from alphafive_tpu_torch.train import checkpoint as ckpt
 from alphafive_tpu_torch.train.evaluate import evaluate_vs
 from alphafive_tpu_torch.utils.elo import (ANCHOR_STEP_ELO, LadderState,
@@ -57,11 +68,8 @@ BEST_TAG, TRANSFER_TAG = 0xBE57, 0x5117
 
 
 def _generator(device, *words: int) -> torch.Generator:
-    """A generator on `device` seeded from `words` (numpy's SeedSequence
-    mixes them, so nearby tuples give unrelated streams)."""
-    seed = int(np.random.SeedSequence(list(words)).generate_state(
-        1, np.uint64)[0]) & (2 ** 63 - 1)
-    return torch.Generator(device=device).manual_seed(seed)
+    """A generator on `device` seeded from `words`."""
+    return torch.Generator(device=device).manual_seed(mixed_seed(*words))
 
 
 def train(cfg: RunConfig, workdir: Optional[str] = None,
@@ -70,16 +78,27 @@ def train(cfg: RunConfig, workdir: Optional[str] = None,
           init_from: Optional[str] = None, device="cuda"):
     """Run the pipeline on `device`. Returns (carry, ladder).
 
+    Under a process group this is the rank's part of the run, and the
+    world takes the place of ``mesh.data`` (as in JAX's multi-process
+    loop); without one, ``mesh.data`` > 1 raises with the launch command.
     profile_iters > 0 captures a ``torch.profiler`` trace of iterations
     [start + 2, start + 2 + profile_iters) into ``<workdir>/profile``.
     init_from warm-starts a fresh run's net from an exported model through
     function-preserving surgery (``models/surgery.py``); a resumed
     checkpoint takes precedence (the warm start happened in that run)."""
     total = total_iters if total_iters is not None else cfg.train.total_iters
-    log = logger or MetricsLogger(workdir)
+    group, primary = distributed.group(), distributed.is_primary()
+    if group is None and cfg.mesh.data > 1:
+        raise ValueError(
+            f"mesh.data={cfg.mesh.data} needs {cfg.mesh.data} processes, one "
+            f"a GPU: torchrun --nproc-per-node {cfg.mesh.data} -m "
+            "alphafive_tpu_torch.cli train --multihost ... (or --set "
+            "mesh.data=1 for one device)")
+    log = logger or MetricsLogger(workdir if primary else None,
+                                  quiet=not primary)
     mgr = ckpt.make_manager(f"{workdir}/ckpt") if workdir else None
 
-    carry = parallel.init_carry(cfg, device)
+    carry = parallel.init_carry(cfg, device, group=group)
     ladder = LadderState(max_rollouts=cfg.train.max_anchor_rollouts)
     start_iter = 0
 
@@ -104,18 +123,21 @@ def train(cfg: RunConfig, workdir: Optional[str] = None,
         log.log({"kind": "resume", "iter": start_iter})
     elif init_from is not None:
         carry = _apply_transfer_init(cfg, carry, init_from, device)
+        if group is not None:
+            broadcast_train_state(carry.train_state, group)
         log.log({"kind": "transfer_init", "src": init_from})
 
-    iteration = parallel.make_train_iteration(cfg)
+    iteration = parallel.make_train_iteration(cfg, group)
     sims = cfg.mcts.num_simulations
-    n_chips = 1
+    n_chips = distributed.world()
     prof = None
     dev = torch.device(device)
+    profile = bool(profile_iters and workdir and primary)
 
     for it in range(start_iter, total):
-        if profile_iters and workdir and it == start_iter + 2:
+        if profile and it == start_iter + 2:
             prof = _start_profile(dev)
-        if profile_iters and workdir and it == start_iter + 2 + profile_iters:
+        if profile and it == start_iter + 2 + profile_iters:
             _stop_profile(prof, workdir, log)
             prof = None
         t0 = time.time()
@@ -144,18 +166,24 @@ def train(cfg: RunConfig, workdir: Optional[str] = None,
             ckpt.save(mgr, it + 1, carry, cfg, ladder)
             log.log({"kind": "checkpoint", "iter": it + 1})
         if do_eval:
-            elo = run_eval(cfg, carry, ladder, it, log, device)
-            if workdir:
-                _write_ladder_sidecar(workdir, it + 1, ladder)
             best_model_dir = f"{workdir}/best_model" if workdir else None
-            if _best_gate(cfg, carry, ladder, elo, best_model_dir, it, log,
-                          device):
+            elo = promote = None
+            if primary:
+                elo = run_eval(cfg, carry, ladder, it, log, device)
+                if workdir:
+                    _write_ladder_sidecar(workdir, it + 1, ladder)
+                promote = _best_gate(cfg, carry, ladder, elo, best_model_dir,
+                                     it, log, device)
+            elo, promote, ladder = distributed.broadcast_object(
+                (elo, promote, ladder))
+            if promote:
                 ckpt.save(ckpt.make_manager(f"{workdir}/best",
                                             max_to_keep=1),
                           it + 1, carry, cfg, ladder)
-                params, batch_stats = carry.train_state.net.to_flax()
-                ckpt.export_model(best_model_dir, params, batch_stats, cfg,
-                                  extra={"iteration": it + 1})
+                if primary:
+                    params, batch_stats = carry.train_state.net.to_flax()
+                    ckpt.export_model(best_model_dir, params, batch_stats,
+                                      cfg, extra={"iteration": it + 1})
                 log.log({"kind": "best", "iter": it + 1, "elo": elo})
 
     if prof is not None:
@@ -172,9 +200,9 @@ def _best_gate(cfg: RunConfig, carry, ladder: LadderState,
     Two regimes: while the ladder is live, a new best performance Elo;
     once it is maxed and swept (the anchors carry no more signal), a
     net-vs-net match against the stored best model, promoted at
-    ``train.best_gate_score``. No workdir, no promotion. One process
-    decides; the multi-GPU loop (ROADMAP item 15) must decide on rank 0
-    and broadcast, so that every rank enters the save together."""
+    ``train.best_gate_score``. No workdir, no promotion. Under a process
+    group rank 0 alone calls it, and ``train`` broadcasts the decision,
+    so that every rank enters the best save together."""
     if best_model_dir is None:
         return False
     maxed = ladder.anchor_rollouts * 2 > ladder.max_rollouts

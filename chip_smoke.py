@@ -40,7 +40,18 @@ the entry points a user calls:
   ``--workdir`` loading (``export``); the memory guard's estimate against
   the peak the device allocated over ``train_loop`` (``memory_guard``).
   Every resblock launch of the loop is resident, and each leaf batch its
-  eval launches has a kernel_vs_plain row.
+  eval launches has a kernel_vs_plain row;
+* ``python -m alphafive_tpu_torch.cli train --multihost`` at
+  ``train_lowsim_15x15`` with ``net.use_pallas=true`` and ``--init-from
+  pretrained/15x15_lowsim`` as two ranks sharing the card over gloo
+  (NCCL refuses two ranks on one device; ``mesh.data=2``: 1,024 envs and
+  16,384-leaf resblock forwards a rank): 3 iterations with checkpoints
+  of per-rank shards, then a ``--resume`` (``train_two_ranks``), checked
+  for one record per event, env steps summed over the ranks, the ranks'
+  weights bit-identical and the shards on disk; and a world of one under
+  NCCL against the loop with no process group from the same seed
+  (``train_nccl_one_rank``: self-play and the ring bit-equal, the
+  learner within the iteration parity test's bars).
 
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
@@ -94,7 +105,9 @@ from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 # streaming at 64 channels, tiled at 9x9, f32 plain at each channel
 # count), and the last five the train loop's eval: one game a colour, the
 # root (1) and the Gumbel passes of 16, 8, 4 and 2 lanes of a 240-sim
-# search (EVAL_BATCHES; phase train_loop checks it saw no other)
+# search (EVAL_BATCHES; phase train_loop checks it saw no other), then
+# train_two_ranks' root and leaf forwards, 1,024 envs a rank × 16 lanes
+# (TWO_RANK_BATCHES; that phase checks it saw no other)
 SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (256, 15, 64, torch.bfloat16, "resident"),
           (32768, 15, 64, torch.bfloat16, "resident"),
@@ -109,6 +122,9 @@ SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (256, 19, 128, torch.float32, "f32_plain")]
 EVAL_BATCHES = (1, 2, 4, 8, 16)
 SHAPES += [(b, 15, 64, torch.bfloat16, "resident") for b in EVAL_BATCHES]
+TWO_RANK_BATCHES = (1024, 16384)
+SHAPES += [(b, 15, 64, torch.bfloat16, "resident")
+           for b in TWO_RANK_BATCHES]
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -156,6 +172,35 @@ TRAIN_ARGV = ["train", "--preset", "train_lowsim_15x15",
               "--set", f"train.eval_games={TRAIN_EVAL_GAMES}"]
 TRAIN_REDUCED = [f"train.eval_games 32 -> {TRAIN_EVAL_GAMES}",
                  "iterations 2,400 -> 4 (then a resume to 6)"]
+# cli train --multihost at train_lowsim_15x15 as two ranks sharing the one
+# card over gloo between CUDA tensors (NCCL refuses two ranks on one
+# device): each rank 1,024 envs x 16 lanes (16,384-leaf resblock forwards),
+# a ring of 200,000 rows and learner batches of 256. 3 iterations with a
+# checkpoint at 2 and the final one at 3, then a resume to 4. Cut: no
+# ladder eval
+TWO_RANKS, TWO_RANK_TIMEOUT_S = 2, 420
+TWO_RANK_ARGV = ["train", "--preset", "train_lowsim_15x15",
+                 "--set", "net.use_pallas=true",
+                 "--set", f"mesh.data={TWO_RANKS}",
+                 "--set", "train.checkpoint_every_iters=2",
+                 "--set", "train.eval_every_iters=0"]
+TWO_RANK_REDUCED = ["train.eval_every_iters 400 -> 0 (no ladder eval)",
+                    "iterations 2,400 -> 3 (then a resume to 4)",
+                    "2 ranks on one card, over gloo (NCCL needs a card a "
+                    "rank)"]
+SHARD_FILES = sorted(["meta.json", "model.pt"]
+                     + [f"carry.rank{r}.pt" for r in range(TWO_RANKS)])
+# a world of one under NCCL against no group: 2 iterations (the first
+# stages, the second writes the ring and runs the learner), so both runs'
+# self-play reads the same weights and must match bit for bit; the
+# learner's metrics and weights to the iteration parity test's bars
+# (tests/test_torch_iteration.py: cuDNN's convolution backward is not
+# bit-deterministic from run to run)
+NCCL_ITERS = 2
+NCCL_METRIC_TOL, NCCL_PARAM_TOL = (1e-7, 1e-4), (1e-5, 1e-4)
+SELFPLAY_KEYS = ("games_finished", "env_steps", "black_wins", "white_wins",
+                 "draws", "mean_root_value", "buffer_size", "z_valid_frac",
+                 "updated", "step")
 # the JAX loop's iter record (alphafive_tpu/train/loop.py): the
 # iteration's metrics, the rates and the two lr canaries
 ITER_KEYS = {"t", "kind", "iter", "black_wins", "buffer_size", "draws",
@@ -1395,10 +1440,12 @@ def phase_export(run: dict, card: str):
 def phase_memory_guard(run: dict, card: str):
     """utils/memory.py's estimate for the train run's config beside the
     device memory it allocated at its peak over train_loop (above what
-    was allocated before): the estimate must not be below the peak."""
+    was allocated before): the estimate must not be below the peak. The
+    run had no process group: the estimate for its world of one."""
+    from alphafive_tpu_torch.parallel import distributed
     from alphafive_tpu_torch.utils import memory
     cfg = run["cfg"]
-    terms = memory.estimate_terms(cfg)
+    terms = memory.estimate_terms(cfg, distributed.world())
     est = sum(terms.values())
     peak = run["peak_bytes"]
     emit("memory_guard", preset=cfg.name, estimate_bytes=est,
@@ -1412,6 +1459,334 @@ def phase_memory_guard(run: dict, card: str):
         raise AssertionError(f"memory estimate {est} below the measured "
                              f"peak {peak}")
 
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(fn, args, nprocs: int, timeout_s: float) -> None:
+    """fn(rank, *args) in `nprocs` spawned processes; raise what a rank
+    raised, or past `timeout_s`; every process is ended on the way out."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=2):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks still running after {timeout_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+
+
+def weights_digest(state_dict) -> str:
+    """sha256 of a net's parameters and buffers, bit for bit."""
+    import hashlib
+    h = hashlib.sha256()
+    for k, t in state_dict.items():
+        h.update(k.encode())
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def two_rank_worker(rank: int, port: int, argv: list, out: str) -> None:
+    """One rank of train_two_ranks: joins a gloo group on the card, runs
+    `cli.main(argv)` with the multi-host flags (the CLI keeps the group
+    it finds) and writes its counts, its self-play env steps, its
+    iteration and learner seconds (synchronised timers), the batch
+    sizes it launched the resblock kernel at and a digest of its final
+    weights to `out`.rank<r>.json."""
+    from alphafive_tpu_torch import cli, parallel
+    from alphafive_tpu_torch.parallel import distributed, mesh
+    from alphafive_tpu_torch.train import actor, loop
+    distributed.initialize(f"127.0.0.1:{port}", TWO_RANKS, rank,
+                           backend="gloo", device="cuda")
+    returned, steps, iter_s, learner_s = [], [], [], []
+    train, record = loop.train, actor.selfplay_record
+    make, fused = parallel.make_train_iteration, rb.fused_resblock
+    batches = set()
+
+    def recording_train(*args, **kw):
+        returned.append(train(*args, **kw))
+        return returned[-1]
+
+    def recording_selfplay(*args, **kw):
+        result = record(*args, **kw)
+        steps.append(result[2].env_steps)
+        return result
+
+    def timed_make(*args, **kw):
+        return timer(make(*args, **kw), iter_s)
+
+    def recording_fused(x, *args):
+        batches.add((x.shape[0], x.shape[1], x.shape[3], str(x.dtype)))
+        return fused(x, *args)
+
+    rb.resblock_launches = 0
+    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    with patched((loop, "train", recording_train),
+                 (actor, "selfplay_record", recording_selfplay),
+                 (parallel, "make_train_iteration", timed_make),
+                 (mesh, "learner_phase", timer(mesh.learner_phase,
+                                               learner_s)),
+                 (rb, "fused_resblock", recording_fused)):
+        rc = cli.main([*argv, "--multihost",
+                       "--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", str(TWO_RANKS),
+                       "--process-id", str(rank)])
+    carry = returned[-1][0]
+    with open(f"{out}.rank{rank}.json", "w") as f:
+        json.dump(dict(rank=rank, rc=rc, launches=rb.resblock_launches,
+                       variants=dict(rb.variant_launches),
+                       local_env_steps=steps, iter_seconds=iter_s,
+                       learner_seconds=learner_s,
+                       batches=sorted(batches),
+                       digest=weights_digest(
+                           carry.train_state.net.state_dict()),
+                       peak_bytes=torch.cuda.max_memory_allocated()), f)
+
+
+def phase_train_two_ranks(workdir: str, card: str):
+    """`cli train --multihost` at train_lowsim_15x15 + use_pallas from the
+    lowsim bundle as two ranks on the one card (gloo): 3 iterations with
+    checkpoints at 2 and 3, then a `--resume` to 4 (its checkpoint at 4).
+    Checks: one record per event in metrics.jsonl (rank 0 writes it
+    alone), iterations 1-3 updating with finite losses, each iteration's
+    env_steps the sum of the ranks' own, both ranks' weights bit-identical
+    after each run and equal to step 4's model.pt, steps 2-4 each with
+    model.pt and both shards (meta world 2), every resblock launch of
+    both ranks resident, each rank's device memory peak within the memory
+    guard's estimate for a world of two. Prints each rank's and the
+    aggregate env-steps/s and the learner's share of each rank's
+    iterations. Every batch the ranks launched the resblock kernel at has
+    a kernel_vs_plain row."""
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.train import checkpoint as ckpt
+    from alphafive_tpu_torch.utils import memory
+    estimate = memory.estimate_device_bytes(apply_overrides(
+        get_preset("train_lowsim_15x15"), ["net.use_pallas=true"]),
+        TWO_RANKS)
+    wd = os.path.join(workdir, "run")
+    runs = {"train": [*TWO_RANK_ARGV, "--init-from",
+                      os.path.join(ROOT, "pretrained", "15x15_lowsim"),
+                      "--workdir", wd, "--iters", "3"],
+            "resume": [*TWO_RANK_ARGV, "--workdir", wd, "--iters", "4",
+                       "--resume"]}
+    want = {"train": [("transfer_init", None), ("iter", 0), ("iter", 1),
+                      ("checkpoint", 2), ("iter", 2)],
+            "resume": [("resume", 3), ("iter", 3), ("checkpoint", 4)]}
+    torch.cuda.empty_cache()
+    fails, report, seen = [], {}, 0
+    for tag, argv in runs.items():
+        out = os.path.join(workdir, tag)
+        t0 = time.perf_counter()
+        spawn_ranks(two_rank_worker, (free_port(), argv, out), TWO_RANKS,
+                    TWO_RANK_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        ranks = []
+        for r in range(TWO_RANKS):
+            with open(f"{out}.rank{r}.json") as f:
+                ranks.append(json.load(f))
+        recs = records(wd)[seen:]
+        seen += len(recs)
+        seq = [(r["kind"], r.get("iter")) for r in recs]
+        if seq != want[tag] or any(r["rc"] != 0 for r in ranks):
+            fails.append((tag, "records", seq))
+        iters = [r for r in recs if r["kind"] == "iter"]
+        for i, r in enumerate(iters):
+            local = [rk["local_env_steps"][i] for rk in ranks]
+            if r["env_steps"] != sum(local):
+                fails.append((tag, r["iter"], "env_steps", r["env_steps"],
+                              local))
+            if r["iter"] >= 1 and not (r["updated"] == 1.0 and all(
+                    math.isfinite(r[k]) for k in ("loss", "policy_loss",
+                                                  "value_loss"))):
+                fails.append((tag, r["iter"], "update"))
+        if len({rk["digest"] for rk in ranks}) != 1:
+            fails.append((tag, "ranks' weights differ"))
+        covered = {(b, s, c, str(dt)) for b, s, c, dt, _ in SHAPES}
+        for rk in ranks:
+            if not (rk["launches"] > 0
+                    and rk["variants"]["resident"] == rk["launches"]):
+                fails.append((tag, rk["rank"], "launches", rk["launches"]))
+            if rk["peak_bytes"] > estimate:
+                fails.append((tag, rk["rank"], "peak over the estimate",
+                              rk["peak_bytes"], estimate))
+            missing = [b for b in map(tuple, rk["batches"])
+                       if b not in covered]
+            if missing:
+                fails.append((tag, rk["rank"], "batches without a "
+                              "kernel_vs_plain row", missing))
+        report[tag] = dict(
+            argv=argv, seconds=seconds, records=seq,
+            iter_seconds=[r["iter_seconds"] for r in iters],
+            env_steps_per_s=[r["env_steps_per_s"] for r in iters],
+            env_steps_per_s_per_chip=[r["env_steps_per_s_per_chip"]
+                                      for r in iters],
+            losses=[r["loss"] for r in iters],
+            ranks=[dict(rank=rk["rank"], resblock_launches=rk["launches"],
+                        variant_launches=rk["variants"],
+                        env_steps_per_s=[n / s for n, s in zip(
+                            rk["local_env_steps"], rk["iter_seconds"])],
+                        iteration_seconds=rk["iter_seconds"],
+                        learner_seconds=rk["learner_seconds"],
+                        learner_share=sum(rk["learner_seconds"])
+                        / sum(rk["iter_seconds"]),
+                        resblock_batches=rk["batches"],
+                        peak_bytes=rk["peak_bytes"])
+                   for rk in ranks],
+            weights_digest=ranks[0]["digest"])
+    mgr = ckpt.make_manager(os.path.join(wd, "ckpt"))
+    if mgr.all_steps() != [2, 3, 4]:
+        fails.append(("ckpt steps", mgr.all_steps()))
+    layout = {s: sorted(os.listdir(mgr.step_dir(s)))
+              for s in mgr.all_steps()}
+    if any(files != SHARD_FILES for files in layout.values()):
+        fails.append(("ckpt layout", layout))
+    with open(os.path.join(mgr.step_dir(4), "meta.json")) as f:
+        meta_world = json.load(f)["world"]
+    saved = torch.load(os.path.join(mgr.step_dir(4), "model.pt"),
+                       map_location="cpu", weights_only=True)
+    if (meta_world != TWO_RANKS or weights_digest(saved["net"])
+            != report["resume"]["weights_digest"]):
+        fails.append(("step 4", meta_world, "model.pt weights"))
+    launches = sum(rk["resblock_launches"] for run in report.values()
+                   for rk in run["ranks"])
+    emit("train_two_ranks", reduced=TWO_RANK_REDUCED, ranks=TWO_RANKS,
+         backend="gloo", envs_per_rank=1024, runs=report,
+         checkpoint_steps=mgr.all_steps(), checkpoint_layout=layout,
+         checkpoint_step_bytes=dir_bytes(mgr.step_dir(4)),
+         memory_estimate_per_rank_bytes=estimate,
+         resblock_launches=launches, nvidia_smi=nvidia_smi(), card=card,
+         failed_checks=fails, ok=not fails)
+    if fails:
+        raise AssertionError(f"two-rank train phase failed its checks: "
+                             f"{fails}")
+    return launches
+
+
+class Records:
+    """A logger that keeps the loop's records."""
+
+    def __init__(self):
+        self.records = []
+
+    def log(self, record) -> None:
+        self.records.append(record)
+
+
+def phase_train_nccl_one_rank(card: str):
+    """`loop.train` at train_lowsim_15x15 + use_pallas from the lowsim
+    bundle in a world of one under NCCL, so the learner's all-reduces run
+    on the card, against the loop with no process group from the same
+    seed: NCCL_ITERS iterations each. Self-play metrics and the ring
+    equal bit for bit; the learner's metrics and the weights and
+    statistics within the iteration test's bars; the NCCL run made its
+    all-reduces (counted), the other none; every resblock launch
+    resident."""
+    import torch.distributed as dist
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.parallel import distributed, mesh
+    from alphafive_tpu_torch.train import loop
+    cfg = apply_overrides(get_preset("train_lowsim_15x15"),
+                          ["net.use_pallas=true", "train.eval_every_iters=0"])
+    bundle = os.path.join(ROOT, "pretrained", "15x15_lowsim")
+    runs = {}
+    for name in ("nccl", "no_group"):
+        reduces = []
+        all_reduce = dist.all_reduce
+
+        def counting(tensor, *args, **kw):
+            reduces.append(tensor.numel())
+            return all_reduce(tensor, *args, **kw)
+
+        backend = None
+        if name == "nccl":
+            distributed.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                                   backend="nccl", device="cuda")
+            backend = dist.get_backend()
+        log = Records()
+        rb.resblock_launches = 0
+        rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+        t0 = time.perf_counter()
+        try:
+            with patched((dist, "all_reduce", counting)):
+                carry, _ = loop.train(cfg, None, NCCL_ITERS, logger=log,
+                                      init_from=bundle, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            distributed.shutdown()
+        runs[name] = dict(
+            carry=carry, backend=backend, seconds=time.perf_counter() - t0,
+            iters=[r for r in log.records if r["kind"] == "iter"],
+            all_reduces=len(reduces), all_reduce_elements=sum(reduces),
+            launches=rb.resblock_launches,
+            variants=dict(rb.variant_launches))
+    a, b = runs["nccl"], runs["no_group"]
+    fails = []
+    if not (a["backend"] == "nccl" and a["all_reduces"] > 0
+            and b["all_reduces"] == 0):
+        fails.append(("collectives", a["backend"], a["all_reduces"],
+                      b["all_reduces"]))
+    worst = {}
+    for i, (ma, mb) in enumerate(zip(a["iters"], b["iters"])):
+        for k in SELFPLAY_KEYS:
+            if ma[k] != mb[k]:
+                fails.append((i, k, ma[k], mb[k]))
+        for k in mesh.AUX_KEYS:
+            err = abs(ma[k] - mb[k])
+            worst[k] = max(worst.get(k, 0.0), err)
+            if err > NCCL_METRIC_TOL[0] + NCCL_METRIC_TOL[1] * abs(mb[k]):
+                fails.append((i, k, ma[k], mb[k]))
+    if not (len(a["iters"]) == len(b["iters"]) == NCCL_ITERS
+            and a["iters"][-1]["updated"] == 1.0):
+        fails.append(("iterations", len(a["iters"]), len(b["iters"])))
+    ca, cb = a["carry"], b["carry"]
+    ring = [f.name for f in dataclasses.fields(ca.buffer)
+            if not torch.equal(torch.as_tensor(getattr(ca.buffer, f.name)),
+                               torch.as_tensor(getattr(cb.buffer, f.name)))]
+    if ring:
+        fails.append(("ring", ring))
+    param_err = 0.0
+    for (k, u), v in zip(ca.train_state.net.state_dict().items(),
+                         cb.train_state.net.state_dict().values()):
+        if not u.is_floating_point():
+            continue
+        err = (u - v).abs()
+        param_err = max(param_err, float(err.max()))
+        if not bool((err <= NCCL_PARAM_TOL[0]
+                     + NCCL_PARAM_TOL[1] * v.abs()).all()):
+            fails.append(("weights", k, float(err.max())))
+    bit_equal = all(torch.equal(u, v) for u, v in zip(
+        ca.train_state.net.state_dict().values(),
+        cb.train_state.net.state_dict().values()))
+    for name, run in runs.items():
+        if not (run["launches"] > 0
+                and run["variants"]["resident"] == run["launches"]):
+            fails.append((name, "launches", run["launches"]))
+    emit("train_nccl_one_rank", iterations=NCCL_ITERS,
+         backend=a["backend"], all_reduces=a["all_reduces"],
+         all_reduce_elements=a["all_reduce_elements"],
+         seconds={k: r["seconds"] for k, r in runs.items()},
+         iter_seconds={k: [m["iter_seconds"] for m in r["iters"]]
+                       for k, r in runs.items()},
+         learner_metric_max_abs_err=worst, weights_max_abs_err=param_err,
+         weights_bit_equal=bit_equal, ring_equal=not ring,
+         tol=dict(metrics=NCCL_METRIC_TOL, weights=NCCL_PARAM_TOL),
+         resblock_launches=a["launches"], nvidia_smi=nvidia_smi(),
+         card=card, failed_checks=fails, ok=not fails)
+    if fails:
+        raise AssertionError(f"NCCL one-rank phase failed its checks: "
+                             f"{fails}")
+    return a["launches"]
 
 
 def main() -> int:
@@ -1443,6 +1818,12 @@ def main() -> int:
         phase_memory_guard(run, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        two_rank_launches = phase_train_two_ranks(workdir, card)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    nccl_launches = phase_train_nccl_one_rank(card)
     sel_rows = phase_select_kernel_vs_plain(latency)
     phase_search_packed(card)
     sel_launches = phase_eval(card)
@@ -1450,6 +1831,7 @@ def main() -> int:
     # the resblock's self-play shape; the select kernel's cli eval shape
     main_row = rows[0]
     leaf_row = next(r for r in rows if r["batch"] == 32768)
+    rank_leaf_row = next(r for r in rows if r["batch"] == 16384)
     sel_row = next(r for r in sel_rows if r["envs"] == 1
                    and r["case"] == "tree" and r["forced_k"] == 0.0)
     print(json.dumps({"kernels": [{
@@ -1457,17 +1839,23 @@ def main() -> int:
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
         "launches": (rb_launches + lowsim_launches + train_launches
-                     + run["launches"]),
+                     + run["launches"] + two_rank_launches
+                     + nccl_launches),
         "launches_chip_15x15": rb_launches,
         "launches_lowsim_15x15": lowsim_launches,
         "launches_train_lowsim_15x15": train_launches,
         "launches_train_loop": run["launches"],
+        "launches_train_two_ranks": two_rank_launches,
+        "launches_train_nccl_one_rank": nccl_launches,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "host_us_per_call": main_row["host_us_per_call"],
         "lowsim_leaf_shape": {k: leaf_row[k] for k in (
+            "batch", "max_abs_err", "ms", "host_us_per_call", "plain_ms",
+            "bound_ms", "bound_by", "share_of_bound", "library_ms")},
+        "two_rank_leaf_shape": {k: rank_leaf_row[k] for k in (
             "batch", "max_abs_err", "ms", "host_us_per_call", "plain_ms",
             "bound_ms", "bound_by", "share_of_bound", "library_ms")}}, {
         "name": "select_batch", "route": "cuda",

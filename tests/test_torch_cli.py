@@ -79,17 +79,25 @@ def test_play_gumbel_root_scripted(monkeypatch, capsys):
     assert "(2, 2)" not in "".join(ai) and "(0, 0)" not in "".join(ai)
 
 
-def test_bench_selfplay_and_unported_commands(capsys):
+def test_bench_selfplay_and_unported_commands(capsys, monkeypatch):
     rc = cli.main(["bench", "--preset", "tiny_test", "--device", "cpu",
                    "--plies", "1", "--set", "train.num_envs=2"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["device"] == "cpu" and out["sims_per_s"] > 0
-    # the multi-host flags name the multi-GPU item; one device otherwise
-    for flags in (["--multihost"], ["--coordinator", "localhost:1"],
-                  ["--num-processes", "2"], ["--process-id", "0"]):
-        with pytest.raises(NotImplementedError, match="item 15"):
+    # --multihost joins a process group (tests/test_torch_distributed_cli.py
+    # runs two); with no world to join it says how to launch one, and
+    # bench times the iteration across ranks, not self-play alone
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    for flags, refusal in ((["--multihost"], "torchrun"),
+                           (["--multihost", "--coordinator", "localhost:1"],
+                            "--process-id")):
+        with pytest.raises(ValueError, match=refusal):
             cli.main(["train", *flags, "--preset", "tiny_test", "--device",
                       "cpu"])
+    with pytest.raises(SystemExit, match="--mode iteration"):
+        cli.main(["bench", "--multihost", "--preset", "tiny_test",
+                  "--device", "cpu"])
     if not torch.cuda.is_available():
         for argv in (["eval"], ["train"], ["export", "--out", "x"]):
             with pytest.raises(SystemExit):

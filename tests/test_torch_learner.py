@@ -441,3 +441,59 @@ def test_clip_divides_by_the_norm():
             [jnp.asarray(x.numpy()) for x in g], None)[0]
         assert float(norm) == pytest.approx(scale)
         np.testing.assert_array_equal(-u.numpy(), np.asarray(want[0]))
+
+
+def test_debug_nans_raises_on_a_nan_batch():
+    """Under autograd's anomaly mode (``cli --debug-nans``, the
+    counterpart of ``jax_debug_nans``) a batch holding a NaN raises
+    FloatingPointError naming the loss before any weight moves; without
+    it the step runs and returns the NaN loss."""
+    cfg = get_preset("tiny_test")
+    ts = tiny_state(cfg)
+    rng = np.random.default_rng(0)
+    b, s, a = 8, cfg.env.board_size, cfg.env.num_actions
+    feats = torch.from_numpy(rng.random((b, s, s, 4)).astype(np.float32))
+    feats[3, 1, 2, 0] = float("nan")
+    nan_batch = (feats, torch.full((b, a), 1.0 / a), torch.ones(b),
+                 torch.ones(b))
+    before = [p.clone() for p in ts.net.parameters()]
+    with torch.autograd.detect_anomaly():
+        with pytest.raises(FloatingPointError, match="non-finite loss"):
+            learner.train_step(cfg.env, cfg.net, cfg.train, ts, nan_batch)
+    assert ts.step == 0
+    assert all(torch.equal(p, q) for p, q in zip(before,
+                                                 ts.net.parameters()))
+    _, aux = learner.train_step(cfg.env, cfg.net, cfg.train, ts, nan_batch)
+    assert np.isnan(float(aux["loss"]))
+
+
+def test_check_finite_names_the_first_non_finite_tensor():
+    ok = torch.ones(3)
+    learner.check_finite([("a", ok), ("b", torch.zeros(()))])
+    with pytest.raises(FloatingPointError, match="non-finite b$"):
+        learner.check_finite([("a", ok), ("b", torch.tensor([1.0, np.inf])),
+                              ("c", torch.tensor(np.nan))])
+
+
+def test_debug_nans_checks_the_iteration_metrics(monkeypatch, capsys):
+    """`--debug-nans` turns the anomaly mode on; under it a non-finite
+    metric of the iteration raises FloatingPointError naming it."""
+    from alphafive_tpu_torch import cli, parallel
+    from alphafive_tpu_torch.parallel import mesh
+
+    try:
+        assert cli.main(["bench", "--preset", "tiny_test", "--device", "cpu",
+                         "--plies", "1", "--set", "train.num_envs=2",
+                         "--debug-nans"]) == 0
+        assert torch.is_anomaly_enabled()
+        capsys.readouterr()
+        cfg = get_preset("tiny_test")
+        cfg = cfg.replace(replay=dataclasses.replace(cfg.replay, min_fill=0))
+        nan_loss = dict.fromkeys(mesh.AUX_KEYS, 0.0) | {
+            "loss": torch.tensor(np.nan)}
+        monkeypatch.setattr(mesh, "learner_phase", lambda *a: nan_loss)
+        carry = parallel.init_carry(cfg, "cpu")
+        with pytest.raises(FloatingPointError, match="'loss'"):
+            parallel.make_train_iteration(cfg)(carry)
+    finally:
+        torch.autograd.set_detect_anomaly(False)

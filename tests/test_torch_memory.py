@@ -95,3 +95,25 @@ def test_budget_error_and_the_cpu_skip():
         allow_oversubscribe = False
     # host memory is not guarded, whatever the estimate
     assert cli._check_device_budget(cfg, Args, torch.device("cpu")) is None
+
+
+def test_the_guard_sizes_each_rank(monkeypatch):
+    """The CLI's guard passes the world size: pod_v5p16 (8,192 envs, a
+    1,000,000-row ring, meant for 8 devices) is refused on one rank of a
+    card whose budget is below its whole estimate and fits on each of 8
+    ranks, which hold an eighth of the envs, the ring and the batch."""
+    from alphafive_tpu_torch.parallel import distributed
+    cfg = get_preset("pod_v5p16")
+    whole, share = (memory.estimate_device_bytes(cfg, n) for n in (1, 8))
+    budget = (whole + share) // 2
+
+    class Args:
+        allow_oversubscribe = False
+    monkeypatch.setattr(memory, "device_budget", lambda device: budget)
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(distributed, "world", lambda: 1)
+    with pytest.raises(SystemExit, match="over 1 device"):
+        cli._check_device_budget(cfg, Args, cuda)
+    monkeypatch.setattr(distributed, "world", lambda: 8)
+    assert cli._check_device_budget(cfg, Args, cuda) is None
+    assert share < whole / 7

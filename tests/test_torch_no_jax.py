@@ -1,7 +1,7 @@
-"""The port and chip_smoke.py import nothing of JAX: the GPU host has none
-of jax, flax, msgpack, optax or orbax, and ``alphafive_tpu`` imports jax.
-Nor do they import safetensors or tensorboardX, which the GPU host lacks
-too."""
+"""The port, chip_smoke.py and the two-rank tests' rank processes import
+nothing of JAX: the GPU host has none of jax, flax, msgpack, optax or
+orbax, and ``alphafive_tpu`` imports jax. Nor do they import safetensors
+or tensorboardX, which the GPU host lacks too."""
 
 import ast
 import glob
@@ -14,7 +14,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "msgpack", "optax", "orbax",
              "alphafive_tpu", "safetensors", "tensorboardX"}
 FILES = sorted(glob.glob(os.path.join(ROOT, "alphafive_tpu_torch", "**",
                                       "*.py"), recursive=True)
-               + [os.path.join(ROOT, "chip_smoke.py")])
+               + [os.path.join(ROOT, "chip_smoke.py"),
+                  # the ranks of the two-rank tests run the port alone
+                  os.path.join(ROOT, "tests", "torch_distributed_worker.py")])
 
 
 def imported_roots(path):
