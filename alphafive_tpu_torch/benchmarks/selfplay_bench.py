@@ -150,6 +150,7 @@ def run(cfg: RunConfig, plies: int = 8, warmup: int = 1, repeats: int = 3,
         "board": cfg.env.board_size,
         "num_envs": cfg.train.num_envs,
         "num_simulations": cfg.mcts.num_simulations,
+        "backup_interval": cfg.mcts.backup_interval,
         "plies": plies,
         "chips": 1,
         "seconds": best,

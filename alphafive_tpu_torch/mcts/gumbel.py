@@ -141,10 +141,9 @@ def _root(evaluate: Evaluator, state: EnvState, generator, add_noise: bool,
 
 
 def _budget(mcts_cfg: MCTSConfig, num_simulations: Optional[int]):
-    """(sims, node count, depth cap, fixed-point W, W scale, prior dtype)."""
-    if int(mcts_cfg.backup_interval) != 1:
-        raise ValueError("backup_interval != 1 (deferred backup) is not "
-                         "ported: ROADMAP Queue 1 item 18")
+    """(sims, node count, depth cap, fixed-point W, W scale, prior dtype).
+    ``backup_interval`` is not read: as in JAX, the Gumbel driver scatters
+    every pass."""
     sims = int(num_simulations or mcts_cfg.num_simulations)
     nn = sims + 1
     depth_limit = min(nn, mcts_cfg.max_depth or nn)

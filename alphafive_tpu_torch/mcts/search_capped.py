@@ -23,8 +23,19 @@ package's, step for step; the port differs only in mechanics:
   bits as JAX's shift.
 
 The Gumbel search over this tree (``mcts/gumbel.py``) forces each lane's
-first step onto its root slot through ``forced_slots``. Not ported:
-deferred backup (``backup_interval=2`` raises).
+first step onto its root slot through ``forced_slots``.
+
+Deferred backup (``backup_interval >= 2``, packed mode only; ignored
+otherwise, as in JAX): passes run in pairs inside a depth stage. The first
+pass of a pair skips its stats scatter and hands its path entries and
+value units to the second as ``pending``; the second pass's descent folds
+them into the real visits and value sums it reads, through the same
+depth index its virtual visits read, and its backup scatters both passes
+in one ``index_put_``. Every fold adds integers (visits) or multiples of
+1/64 (value sums) in f32, all below 2^24, so each add is exact and the
+search is bit-identical to scattering every pass. ``backup_scatters``
+counts the stats scatters (50 a 400-sim, ``leaf_batch`` 8 search; 25
+with deferral).
 """
 
 from __future__ import annotations
@@ -41,6 +52,8 @@ from alphafive_tpu_torch.mcts.search import (Evaluator, SearchResult,
                                              _gather_env, _puct_scores_n,
                                              _select_where, _write_nodes,
                                              dirichlet_noise, masked_softmax)
+
+backup_scatters = 0  # stats scatters (backups) since the last reset
 
 
 @dataclasses.dataclass
@@ -72,7 +85,7 @@ def _top_c(p_signed: torch.Tensor, c: int, prior_dtype: torch.dtype):
 
 def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
                   depth_limit, w_inv_scale, forced_k, num_slots, packed, lb,
-                  forced_slots=None):
+                  forced_slots=None, pending=None):
     """Wavefront PUCT descent of all ``lb`` lanes of a pass.
 
     Lane j starts at step j and every active lane takes one step per
@@ -82,7 +95,10 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
     lane's path entry at index k - j (see the JAX docstring for the
     argument). The tree is read-only here. `forced_slots` [E, LB] pins
     lane j's first step to root slot forced_slots[:, j] (the Gumbel
-    search's halving lanes).
+    search's halving lanes). `pending` (deferred backup) is the previous
+    pass's unscattered results (ppas_prev [E,LP,D], pw_prev int32
+    [E,LP,D] value units, deps_prev [E,LP]): its visits and value units
+    are folded into the real stats read at the same depth index.
 
     Returns (lps [E,LB] leaf-parent nodes, slots [E,LB] chosen slot or -1
     for revisits, deps [E,LB] path lengths, ppas [E,LB,D] packed
@@ -124,6 +140,17 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
         virt = (match[..., None]
                 & ((ent & 255)[..., None] == slot_ar)).sum(dim=1).float()
 
+        if pending is not None:
+            pp, pw, pdep = pending
+            entp = pp[:, :, dsel]                               # [E,LP,LBj]
+            validp = ((dsel[None, None, :] < pdep[:, :, None])
+                      & ((entp >> 8) == cur[:, None, :]))
+            hit = validp[..., None] & ((entp & 255)[..., None] == slot_ar)
+            nf_real = nf_real + hit.sum(dim=1).float()          # [E,LBj,C]
+            w_row = w_row + torch.where(
+                hit, pw[:, :, dsel].float()[..., None], 0.0).sum(dim=1) \
+                * w_inv_scale
+
         nf = nf_real + virt
         score = _puct_scores_n(nf, w_row, p_row, legal, c_puct)
         # forced-playout gate on REAL visits only
@@ -150,19 +177,24 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
 
 def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
               packed, w_scale, prior_dtype, c_puct, forced_k,
-              forced_slots=None) -> None:
+              forced_slots=None, pending=None, defer=False):
     """One leaf-parallel pass: wavefront select of `lb` lanes, batched
     env.step + net forward, dedup expansion at node ids [base, base + lb),
     backup scatter. Shared by ``run_mcts_capped`` and the Gumbel search,
     which pins each lane's root slot with `forced_slots` [E, lb]. Updates
-    `tree` in place."""
+    `tree` in place.
+
+    Deferred backup (packed mode only): with `defer` the stats scatter is
+    skipped and the pass returns its results as the next pass's
+    `pending`, which that pass folds into its descent and scatters with
+    its own in one ``index_put_``. Returns the pending tuple with `defer`,
+    else None."""
     e = tree.node_done.shape[0]
     dev = tree.node_done.device
     lps, slots, deps, ppas = _select_lanes(
         tree.n, tree.n if packed else tree.w, tree.p, tree.child,
         tree.node_done, c_puct, d, 1.0 / w_scale, forced_k, c, packed, lb,
-        forced_slots)
-    pns, pas = ppas >> 8, ppas & 255                            # [E,lb,D]
+        forced_slots, pending)
 
     is_revisit = slots < 0
     safe_slot = slots.clamp(min=0)
@@ -207,20 +239,46 @@ def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
     tree.child.index_put_((eidx2.expand_as(lps), lps, safe_slot), link_add,
                           accumulate=True)
 
-    # backup: edge j of a path of length L gets leaf_value * (-1)^(L - j)
-    # and one visit; pad entries add 0 at (0, 0)
+    return _backup(tree, ppas, deps, leaf_value, packed=packed,
+                   w_scale=w_scale, pending=pending, defer=defer)
+
+
+def _backup(tree: CappedTree, ppas, deps, leaf_value, *, packed, w_scale,
+            pending=None, defer=False):
+    """The stats backup of a pass: edge j of a path of length L gets
+    leaf_value * (-1)^(L - j) and one visit; pad entries add 0 at (0, 0).
+    With `defer` nothing is scattered and (ppas, value units, deps) is
+    returned for the next pass; with `pending` both passes' deltas go
+    into one ``index_put_``. Counts ``backup_scatters``."""
+    global backup_scatters
+    e, _, d = ppas.shape
+    dev = ppas.device
     dn = torch.arange(d, device=dev)[None, None, :]
     on_path = dn < deps[:, :, None]
     sign = torch.where((deps[:, :, None] - dn) % 2 == 0, 1.0, -1.0)
     vals = torch.where(on_path, sign * leaf_value[:, :, None], 0.0)
-    idx = (torch.arange(e, device=dev)[:, None, None].expand_as(pns), pns,
-           pas)
     if packed:
         pw = torch.round(vals * w_scale).int()
-        tree.n.index_put_(idx, pw * 65536 + on_path.int(), accumulate=True)
+        if defer:
+            # entries past a lane's depth read as 0 in the next descent
+            return torch.where(on_path, ppas, 0), pw, deps
+        delta = pw * 65536 + on_path.int()
+        if pending is not None:
+            p_ppas, p_pw, p_deps = pending
+            ppas = torch.cat([ppas, p_ppas], dim=1)
+            delta = torch.cat([delta, p_pw * 65536
+                               + (dn < p_deps[:, :, None]).int()], dim=1)
+    idx = (torch.arange(e, device=dev)[:, None, None].expand_as(ppas),
+           ppas >> 8, ppas & 255)
+    if packed:
+        tree.n.index_put_(idx, delta, accumulate=True)
     else:
+        if defer or pending is not None:
+            raise ValueError("deferred backup needs packed stats")
         tree.n.index_put_(idx, on_path.int(), accumulate=True)
         tree.w.index_put_(idx, vals, accumulate=True)
+    backup_scatters += 1
+    return None
 
 
 def _capped_tree_init(state: EnvState, nn: int, c: int, packed: bool,
@@ -271,9 +329,6 @@ def run_mcts_capped(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
                     noise: Optional[torch.Tensor] = None) -> SearchResult:
     """Branch-capped search; same contract as ``search.run_mcts``.
     `noise` [E, A] replaces the Dirichlet draw from `generator`."""
-    if int(mcts_cfg.backup_interval) != 1:
-        raise ValueError("backup_interval != 1 (deferred backup) is not "
-                         "ported: ROADMAP Queue 1 item 18")
     sims = int(num_simulations or mcts_cfg.num_simulations)
     e, a = state.board.shape
     dev = state.board.device
@@ -311,12 +366,27 @@ def run_mcts_capped(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
     while sims % lb:
         lb -= 1
     passes = sims // lb
+
+    def pass_(p_, d, pending=None, defer=False):
+        return _run_pass(env_cfg, evaluate, tree, base=1 + p_ * lb, d=d,
+                         lb=lb, c=c, packed=packed, w_scale=w_scale,
+                         prior_dtype=prior_dtype, c_puct=c_puct,
+                         forced_k=forced_k, pending=pending, defer=defer)
+
+    defer_ok = packed and int(mcts_cfg.backup_interval) >= 2
     for lo, hi, d in _stages(passes, depth_limit):
-        for p_ in range(lo, hi):
-            _run_pass(env_cfg, evaluate, tree, base=1 + p_ * lb, d=d, lb=lb,
-                      c=c, packed=packed, w_scale=w_scale,
-                      prior_dtype=prior_dtype, c_puct=c_puct,
-                      forced_k=forced_k)
+        if not defer_ok:
+            for p_ in range(lo, hi):
+                pass_(p_, d)
+            continue
+        # pairs (2q, 2q + 1) inside the stage, as JAX pairs them: a pair
+        # never crosses a stage, whose depth cap sizes the pending buffers.
+        # Every stage starts at an even pass (_stages), so the pairs tile
+        # it and an odd end runs its last pass alone
+        for q in range(lo // 2, hi // 2):
+            pass_(2 * q + 1, d, pending=pass_(2 * q, d, defer=True))
+        if hi % 2:
+            pass_(hi - 1, d)
 
     # slot visit counts back onto the action space
     if packed:

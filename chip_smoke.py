@@ -11,7 +11,15 @@ the entry points a user calls:
 * self-play at ``chip_15x15`` with ``net.use_pallas=true`` (256 envs, 400
   sims per move, the bundled 15×15 weights) through
   ``alphafive_tpu_torch.benchmarks.selfplay_bench.run`` — the resblock
-  kernel's path, every launch in its resident variant;
+  kernel's path, every launch in its resident variant — then again with
+  deferred backup (``mcts.backup_interval=2``), held bit-equal, and a
+  per-ply breakdown at both intervals;
+* self-play at ``renju_19x19`` with ``net.use_pallas=true`` at full width
+  (512 envs, 400 sims, Renju rules, the bundled 10-block × 128
+  ``19x19_10b`` weights) at backup intervals 2 and 1, held bit-equal,
+  every resblock launch streaming; the peak memory against the guard's
+  estimate, a per-ply breakdown at both intervals and the device-busy
+  share of a ply;
 * self-play at ``lowsim_15x15`` with ``net.use_pallas=true`` (2,048 envs,
   the Gumbel root at 16 sims: one pass of 16 lanes, so 32,768-leaf
   forwards; the bundled ``15x15_lowsim`` weights) through the same entry
@@ -34,7 +42,8 @@ the entry points a user calls:
 * ``python -m alphafive_tpu_torch.cli train --preset train_lowsim_15x15``
   with ``net.use_pallas=true`` and ``--init-from pretrained/15x15_lowsim``
   at full width: 4 iterations with checkpoints at 2 and 4, one ladder eval
-  (cut to 2 games) and the best export (phase ``train_loop``); step 4
+  (cut to 2 games at 64 sims a move) and the best export (phase
+  ``train_loop``); step 4
   restored onto the card bit-equal to the carry ``train`` returned, then
   ``--resume`` to 6 (``train_resume``); ``cli export`` of the result and
   ``--workdir`` loading (``export``); the memory guard's estimate against
@@ -104,10 +113,12 @@ from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 # five every other kernel instantiation of csrc/resblock.cu (bf16
 # streaming at 64 channels, tiled at 9x9, f32 plain at each channel
 # count), and the last five the train loop's eval: one game a colour, the
-# root (1) and the Gumbel passes of 16, 8, 4 and 2 lanes of a 240-sim
+# root (1) and the Gumbel passes of 16, 8, 4 and 2 lanes of a 64-sim
 # search (EVAL_BATCHES; phase train_loop checks it saw no other), then
 # train_two_ranks' root and leaf forwards, 1,024 envs a rank × 16 lanes
-# (TWO_RANK_BATCHES; that phase checks it saw no other)
+# (TWO_RANK_BATCHES; that phase checks it saw no other), and last
+# renju_19x19 self-play's leaf and root forwards (512 envs × 8 lanes, and
+# the 512 roots), streaming
 SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (256, 15, 64, torch.bfloat16, "resident"),
           (32768, 15, 64, torch.bfloat16, "resident"),
@@ -125,6 +136,8 @@ SHAPES += [(b, 15, 64, torch.bfloat16, "resident") for b in EVAL_BATCHES]
 TWO_RANK_BATCHES = (1024, 16384)
 SHAPES += [(b, 15, 64, torch.bfloat16, "resident")
            for b in TWO_RANK_BATCHES]
+SHAPES += [(4096, 19, 128, torch.bfloat16, "streaming"),
+           (512, 19, 128, torch.bfloat16, "streaming")]
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -133,6 +146,13 @@ TOL = {torch.bfloat16: (5e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 NET_TOL = {"logits": (1e-1, 2e-2), "value": 2e-2}
 SELFPLAY_PLIES, SELFPLAY_REPEATS = 4, 2
 FORWARDS_PER_PLY = 400 // 8 + 1   # 50 passes of 8 lanes + the root
+# stats scatters a 400-sim, leaf_batch-8 search: one a pass, or one a pair
+# of passes with deferred backup (mcts.backup_interval=2)
+SCATTERS_PER_PLY = {1: 50, 2: 25}
+# renju_19x19 self-play: plies a chunk and timed chunks after the first;
+# the breakdown's timed plies at each backup interval
+RENJU_PLIES, RENJU_REPEATS, RENJU_BREAKDOWN_PLIES = 1, 2, 1
+CAPPED_BREAKDOWN_PLIES = 2     # chip_15x15 plies a turn of the breakdown
 # lowsim_15x15: plies per chunk, timed chunks (after the first), and the
 # forwards per ply (the root, then one pass of 16 lanes)
 LOWSIM_PLIES, LOWSIM_REPEATS, LOWSIM_FORWARDS = 8, 2, 2
@@ -163,14 +183,19 @@ LEARNER_TOL = {"aux_rtol": 1e-4, "stats_rtol": 1e-4, "stats_atol": 1e-5,
 # cli train at train_lowsim_15x15 (full width: 2,048 envs, 16-lane
 # Gumbel, ring 400,000, 4 blocks × 64) from the lowsim bundle: 4
 # iterations, checkpoints every 2, one ladder eval at the end; then a
-# resume to 6. Cut: eval_games 32 → 2 (one game a colour)
-TRAIN_EVAL_GAMES = 2
+# resume to 6. Cut: eval_games 32 → 2 (one game a colour) and the eval's
+# search budget 240 → 64 sims a move (the net's Gumbel passes keep their
+# 16, 8, 4 and 2 lanes; the rollout anchor's searches dominate the script)
+TRAIN_EVAL_GAMES, TRAIN_EVAL_SIMS = 2, 64
 TRAIN_ARGV = ["train", "--preset", "train_lowsim_15x15",
               "--set", "net.use_pallas=true",
               "--set", "train.checkpoint_every_iters=2",
               "--set", "train.eval_every_iters=4",
-              "--set", f"train.eval_games={TRAIN_EVAL_GAMES}"]
+              "--set", f"train.eval_games={TRAIN_EVAL_GAMES}",
+              "--set", f"train.eval_simulations={TRAIN_EVAL_SIMS}"]
 TRAIN_REDUCED = [f"train.eval_games 32 -> {TRAIN_EVAL_GAMES}",
+                 f"train.eval_simulations 240 -> {TRAIN_EVAL_SIMS} (the "
+                 "anchor's searches took 175-345 s of the script at 240)",
                  "iterations 2,400 -> 4 (then a resume to 6)"]
 # cli train --multihost at train_lowsim_15x15 as two ranks sharing the one
 # card over gloo between CUDA tensors (NCCL refuses two ranks on one
@@ -390,43 +415,268 @@ def check_fit(bundle: str, saved_cfg, cfg) -> None:
         raise ValueError(f"pretrained/{bundle} does not fit {cfg.name}'s net")
 
 
-def phase_selfplay(params, stats, saved_cfg, card: str):
+def selfplay_run(cfg, params, stats, plies: int, repeats: int) -> dict:
+    """``selfplay_bench.run`` from seed 0 (a first chunk and `repeats`
+    timed ones of `plies` plies) with every ply recorded (position,
+    action, visits, root value) and checked: every root live, its visits
+    summing to the budget, every move legal. The kernel's launch counts
+    and the stats scatters are set to 0 just before and read just after."""
     from alphafive_tpu_torch.benchmarks import selfplay_bench
-    from alphafive_tpu_torch.config import apply_overrides, get_preset
-    cfg = apply_overrides(get_preset("chip_15x15"), ["net.use_pallas=true"])
-    check_fit("15x15", saved_cfg, cfg)
+    from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.mcts import search_capped
     sims = cfg.mcts.num_simulations
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
-    plies = [0]
+    rec, last = [], []
 
     def observe(state, res, action):
-        # every root is live (finished games are reset before the search)
         legal = state.board.gather(1, action.long()[:, None])[:, 0] == 0
         bad.add_((res.visits.sum(-1) != sims).sum() + (~legal).sum()
                  + state.done.sum())
-        plies[0] += 1
+        rec.append((state.board.clone(), action.clone(), res.visits.clone(),
+                    res.root_value.clone()))
+        last[:] = [state, action]
 
     rb.resblock_launches = 0
     rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    search_capped.backup_scatters = 0
     out, traj = selfplay_bench.run(
-        cfg, plies=SELFPLAY_PLIES, warmup=0, repeats=SELFPLAY_REPEATS,
-        device="cuda", params=params, batch_stats=stats, observe=observe,
+        cfg, plies=plies, warmup=0, repeats=repeats, device="cuda",
+        params=params, batch_stats=stats, observe=observe,
         return_trajectory=True)
-    launches = rb.resblock_launches
-    variants = dict(rb.variant_launches)
+    launches, scatters = rb.resblock_launches, search_capped.backup_scatters
     pi_sum = traj.pi.sum(-1)
-    ok = bool(bad.item() == 0
-              and launches == 4 * FORWARDS_PER_PLY * plies[0]
-              and variants["resident"] == launches
-              and torch.isfinite(traj.pi).all()
-              and ((pi_sum - 1).abs() < 1e-5).all())
-    emit("selfplay", **out, total_plies=plies[0], resblock_launches=launches,
-         variant_launches=variants,
-         expected_launches=4 * FORWARDS_PER_PLY * plies[0],
-         failed_checks=bad.item(), nvidia_smi=nvidia_smi(), card=card, ok=ok)
-    if not ok:
-        raise AssertionError("self-play phase failed its checks")
-    return launches
+    return dict(out=out, traj=traj, rec=rec, plies=len(rec),
+                final=vector.step(cfg.env, *last), launches=launches,
+                variants=dict(rb.variant_launches), scatters=scatters,
+                failed_checks=bad.item(),
+                pi_ok=bool(torch.isfinite(traj.pi).all()
+                           and ((pi_sum - 1).abs() < 1e-5).all()))
+
+
+def runs_bit_equal(a: dict, b: dict) -> bool:
+    """Two self-play runs' every ply (position, action, visits, root
+    value), final state and last chunk's trajectory equal bit for bit."""
+    fields = lambda obj: [getattr(obj, f.name)
+                          for f in dataclasses.fields(obj)]
+    pairs = [pair for ra, rb_ in zip(a["rec"], b["rec"])
+             for pair in zip(ra, rb_)]
+    pairs += list(zip(fields(a["final"]), fields(b["final"])))
+    pairs += list(zip(fields(a["traj"]), fields(b["traj"])))
+    return (a["plies"] == b["plies"]
+            and all(torch.equal(x, y) for x, y in pairs))
+
+
+def interval_runs(cfg, params, stats, plies: int, repeats: int,
+                  intervals) -> dict:
+    """selfplay_run at each backup interval, in the order given."""
+    from alphafive_tpu_torch.config import apply_overrides
+    return {i: selfplay_run(apply_overrides(
+        cfg, [f"mcts.backup_interval={i}"]), params, stats, plies, repeats)
+        for i in intervals}
+
+
+def run_summary(run: dict, blocks: int, variant: str) -> tuple[dict, list]:
+    """A run's numbers for its phase line, and the checks it failed: the
+    kernel launched in `variant` `blocks` times a forward, 51 forwards a
+    ply, the stats scatters a ply as the interval gives them, π finite
+    and summing to 1."""
+    interval = run["out"]["backup_interval"]
+    plies = run["plies"]
+    want = blocks * FORWARDS_PER_PLY * plies
+    fails = [name for name, ok in (
+        ("failed_checks", run["failed_checks"] == 0),
+        ("launches", run["launches"] == want),
+        ("variant", run["variants"][variant] == run["launches"]),
+        ("scatters", run["scatters"] == SCATTERS_PER_PLY[interval] * plies),
+        ("pi", run["pi_ok"])) if not ok]
+    return dict(env_steps_per_s=run["out"]["env_steps_per_s"],
+                seconds=run["out"]["seconds"], total_plies=plies,
+                resblock_launches=run["launches"], expected_launches=want,
+                variant_launches=run["variants"],
+                backup_scatters_per_ply=run["scatters"] / plies,
+                failed_checks=run["failed_checks"]), fails
+
+
+def phase_selfplay(params, stats, saved_cfg, card: str):
+    """chip_15x15 self-play (the preset's backup interval 1: the main
+    path), then the same seed, plies and bundle at backup interval 2:
+    every ply, the final state and the trajectory bit-equal; and where
+    the ply goes at both intervals (capped_breakdown)."""
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    cfg = apply_overrides(get_preset("chip_15x15"), ["net.use_pallas=true"])
+    check_fit("15x15", saved_cfg, cfg)
+    runs = interval_runs(cfg, params, stats, SELFPLAY_PLIES,
+                         SELFPLAY_REPEATS, (1, 2))
+    (main, fails), (deferred, fails2) = (
+        run_summary(runs[i], cfg.net.blocks, "resident") for i in (1, 2))
+    equal = runs_bit_equal(runs[1], runs[2])
+    fails += [f"interval_2 {f}" for f in fails2]
+    fails += [] if equal else ["interval_2 not bit-equal"]
+    emit("selfplay", **{**runs[1]["out"], **main}, interval_2=deferred,
+         bit_equal_across_intervals=equal, nvidia_smi=nvidia_smi(),
+         card=card, failed=fails, ok=not fails)
+    if fails:
+        raise AssertionError(f"self-play phase failed its checks: {fails}")
+    emit("capped_breakdown", **capped_breakdown(cfg, params, stats,
+                                                CAPPED_BREAKDOWN_PLIES),
+         nvidia_smi=nvidia_smi(), card=card, ok=True)
+    return runs[1]["launches"]
+
+
+def phase_selfplay_renju(card: str):
+    """renju_19x19 self-play at full width (512 envs, 400 sims, lb 8, cap
+    128, int16 value sums; 10 blocks × 128 from pretrained/19x19_10b,
+    Renju rules) at backup interval 2 and again at 1 from the same seed:
+    each run checked as selfplay_run and run_summary check it, every
+    launch streaming, the two bit-equal; the peak device memory against
+    utils/memory.py's estimate; where a ply goes at both intervals and
+    the device-busy share of one ply."""
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.utils import memory
+    params, stats, saved_cfg = phase_bundle("19x19_10b")
+    cfg = apply_overrides(get_preset("renju_19x19"), ["net.use_pallas=true"])
+    check_fit("19x19_10b", saved_cfg, cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    runs = interval_runs(cfg, params, stats, RENJU_PLIES, RENJU_REPEATS,
+                         (2, 1))
+    peak = torch.cuda.max_memory_allocated() - base
+    (deferred, fails), (main, fails1) = (
+        run_summary(runs[i], cfg.net.blocks, "streaming") for i in (2, 1))
+    equal = runs_bit_equal(runs[2], runs[1])
+    fails += [f"interval_1 {f}" for f in fails1]
+    fails += [] if equal else ["intervals not bit-equal"]
+    terms = memory.estimate_terms(cfg)
+    est = sum(terms.values())
+    fails += [] if est >= peak else ["memory estimate below the peak"]
+    emit("selfplay_renju", **{**runs[2]["out"], **deferred},
+         interval_1=main,
+         bit_equal_across_intervals=equal, bundle="pretrained/19x19_10b",
+         rules=cfg.env.rules, blocks=cfg.net.blocks,
+         channels=cfg.net.channels, measured_peak_bytes=peak,
+         allocated_before_bytes=base, estimate_bytes=est,
+         estimate_terms=terms,
+         selfplay_terms_over_peak=(terms["tree"] + terms["act"]
+                                   + terms["params"]) / peak,
+         nvidia_smi=nvidia_smi(), card=card, failed=fails, ok=not fails)
+    if fails:
+        raise AssertionError(f"renju self-play phase failed its checks: "
+                             f"{fails}")
+    emit("capped_breakdown", **capped_breakdown(
+        cfg, params, stats, RENJU_BREAKDOWN_PLIES, profile=True),
+        nvidia_smi=nvidia_smi(), card=card, ok=True)
+    return runs[2]["launches"]
+
+
+def capped_breakdown(cfg, params, stats, plies: int,
+                     profile: bool = False) -> dict:
+    """Where a ply of the capped search goes at backup intervals 1 and 2,
+    by synchronised timers: a sync before and after each part (the
+    evaluator's calls split by batch into the root and leaf forwards;
+    the descent, `_select_lanes`, with the pending fold at interval 2;
+    the leaf env.step; the stats backup, `_backup`; the rest of the pass
+    is the expansion; the rest of the search its set-up and the root
+    visits; then the ply's own env step and reset). The intervals take
+    turns 1, 2, 2, 1, each turn `plies` plies from the same positions and
+    seed (the searches are bit-equal, so the work is the same), first
+    without the timers (the ply's wall time) and then with them. With
+    `profile`, the device's kernel time of one interval-2 ply."""
+    from alphafive_tpu_torch.config import apply_overrides
+    from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.mcts import search, search_capped
+    from alphafive_tpu_torch.models.evaluator import net_evaluator
+    e = cfg.train.num_envs
+    net_eval = net_evaluator(cfg.env, cfg.net, params, stats, "cuda")
+    names = ("root_forward", "leaf_forward", "descent", "leaf_env_step",
+             "backup", "pass", "search", "ply_env_step", "untimed", "timed")
+    acc = {i: dict.fromkeys(names, 0.0) for i in (1, 2)}
+    into = [acc[1]]
+
+    def timer(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into[0][name] += time.perf_counter() - t0
+            return out
+        return run
+
+    forward = [net_eval]
+
+    def evaluate(board, to_play, last):
+        return forward[0](board, to_play, last)
+
+    def timed_forward(board, to_play, last):
+        name = "root_forward" if board.shape[0] == e else "leaf_forward"
+        return timer(name, net_eval)(board, to_play, last)
+
+    saved = (search_capped._select_lanes, search_capped._backup,
+             search_capped._run_pass, vector.step)
+
+    def advance(st, action):
+        st = saved[3](cfg.env, st, action)
+        return vector.reset_where(cfg.env, st, st.done)
+
+    def plies_from(start, mcts, play, run):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        st = start
+        for _ in range(plies):
+            res = run(cfg.env, mcts, evaluate, st, gen)
+            st = play(st, res.visits.argmax(-1).int())
+        return st
+
+    start = random_states(cfg.env, e, 20, seed=3)
+    mcts = {i: apply_overrides(cfg, [f"mcts.backup_interval={i}"]).mcts
+            for i in (1, 2)}
+    for interval in (1, 2, 2, 1):
+        into[0] = acc[interval]
+        timer("untimed", plies_from)(start, mcts[interval], advance,
+                                     search.run_mcts)
+        search_capped._select_lanes = timer("descent", saved[0])
+        search_capped._backup = timer("backup", saved[1])
+        search_capped._run_pass = timer("pass", saved[2])
+        vector.step = timer("leaf_env_step", saved[3])
+        forward[0] = timed_forward
+        try:
+            timer("timed", plies_from)(
+                start, mcts[interval], timer("ply_env_step", advance),
+                timer("search", search.run_mcts))
+        finally:
+            (search_capped._select_lanes, search_capped._backup,
+             search_capped._run_pass, vector.step) = saved
+            forward[0] = net_eval
+    out = {"preset": cfg.name, "method": "synchronised timers", "envs": e,
+           "plies_per_turn": plies, "turns": [1, 2, 2, 1]}
+    for interval in (1, 2):
+        ms = {k: v / (2 * plies) * 1e3 for k, v in acc[interval].items()}
+        # nested parts: the descent, the leaf step and forward and the
+        # backup run inside the pass, the passes and the root forward
+        # inside the search; "timed" holds the nested timers twice
+        parts = {
+            "root_forward": ms["root_forward"], "descent": ms["descent"],
+            "leaf_env_step": ms["leaf_env_step"],
+            "leaf_forward": ms["leaf_forward"], "backup": ms["backup"],
+            "expansion": ms["pass"] - ms["descent"] - ms["leaf_env_step"]
+            - ms["leaf_forward"] - ms["backup"],
+            "search_setup_and_visits": ms["search"] - ms["root_forward"]
+            - ms["pass"],
+            "ply_env_step": ms["ply_env_step"]}
+        out[f"interval_{interval}"] = {
+            "ms_per_ply": parts, "timed_ply_ms": ms["timed"],
+            "untimed_ply_ms": ms["untimed"],
+            "untimed_env_steps_per_s": e / ms["untimed"] * 1e3}
+    if profile:
+        device = device_profile(
+            lambda: plies_from(start, mcts[2], advance, search.run_mcts), 1)
+        kernel_ms = device["kernel_ms"] and device["kernel_ms"] / plies
+        untimed = out["interval_2"]["untimed_ply_ms"]
+        out["interval_2"].update(
+            device_kernel_ms_per_ply=kernel_ms,
+            device_busy_share=kernel_ms and kernel_ms / untimed,
+            top_kernels_ms_per_ply=device["top"])
+    return out
 
 
 def phase_selfplay_lowsim(params, stats, saved_cfg, card: str):
@@ -1799,6 +2049,7 @@ def main() -> int:
     rows = phase_kernel_vs_plain()
     params, stats, saved_cfg = phase_bundle("15x15")
     rb_launches = phase_selfplay(params, stats, saved_cfg, card)
+    renju_launches = phase_selfplay_renju(card)
     params, stats, saved_cfg = phase_bundle("15x15_lowsim")
     lowsim_launches, traj, lowsim = phase_selfplay_lowsim(params, stats,
                                                           saved_cfg, card)
@@ -1832,16 +2083,18 @@ def main() -> int:
     main_row = rows[0]
     leaf_row = next(r for r in rows if r["batch"] == 32768)
     rank_leaf_row = next(r for r in rows if r["batch"] == 16384)
+    renju_leaf_row = next(r for r in rows if r["batch"] == 4096)
     sel_row = next(r for r in sel_rows if r["envs"] == 1
                    and r["case"] == "tree" and r["forced_k"] == 0.0)
     print(json.dumps({"kernels": [{
         "name": "fused_resblock", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
-        "launches": (rb_launches + lowsim_launches + train_launches
-                     + run["launches"] + two_rank_launches
+        "launches": (rb_launches + renju_launches + lowsim_launches
+                     + train_launches + run["launches"] + two_rank_launches
                      + nccl_launches),
         "launches_chip_15x15": rb_launches,
+        "launches_renju_19x19": renju_launches,
         "launches_lowsim_15x15": lowsim_launches,
         "launches_train_lowsim_15x15": train_launches,
         "launches_train_loop": run["launches"],
@@ -1857,7 +2110,11 @@ def main() -> int:
             "bound_ms", "bound_by", "share_of_bound", "library_ms")},
         "two_rank_leaf_shape": {k: rank_leaf_row[k] for k in (
             "batch", "max_abs_err", "ms", "host_us_per_call", "plain_ms",
-            "bound_ms", "bound_by", "share_of_bound", "library_ms")}}, {
+            "bound_ms", "bound_by", "share_of_bound", "library_ms")},
+        "renju_leaf_shape": {k: renju_leaf_row[k] for k in (
+            "batch", "board", "channels", "variant", "max_abs_err", "ms",
+            "host_us_per_call", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "library_ms")}}, {
         "name": "select_batch", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/select.cu",
         "replaces": "alphafive_tpu/ops/pallas_select.py:189",

@@ -205,12 +205,3 @@ def test_gumbel_avoids_renju_forbidden_trap():
     assert int(res.action[0]) != trap
     assert float(res.visits[0, trap]) >= 1.0   # explored ...
     assert float(res.pi_target[0, trap]) < 0.01  # ... and rejected
-
-
-def test_deferred_backup_is_refused():
-    env = EnvConfig(board_size=5, n_in_row=4)
-    cfg = MCTSConfig(num_simulations=8, root_selection="gumbel",
-                     backup_interval=2)
-    with pytest.raises(ValueError, match="item 18"):
-        gumbel.run_gumbel_mcts(env, cfg, torch_eval(5),
-                               vector.init(env, 1, "cpu"), add_noise=False)

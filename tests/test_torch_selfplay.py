@@ -101,17 +101,6 @@ def test_selfplay_converted_net(use_pallas):
     assert_trajectories_equal(tj, tt, pi_atol=1e-6)
 
 
-def test_gumbel_root_raises():
-    """The Gumbel root refuses deferred backup, which is not ported."""
-    ct = small_chip(config)
-    cfg = dataclasses.replace(ct.mcts, root_selection="gumbel",
-                              backup_interval=2)
-    ev = torch_frozen_evaluator(*frozen_weights(49, 0))
-    with pytest.raises(ValueError, match="item 18"):
-        actor.selfplay_chunk(ct.env, cfg, ev, vector.init(ct.env, 1, "cpu"),
-                             torch.Generator(), 1)
-
-
 def jax_gumbel_tables(seed, plies, e, a):
     """The g table of each ply of the JAX actor's Gumbel search from
     `seed`: per ply key -> (key, ks, ka, kc), then the search splits ks
