@@ -90,7 +90,7 @@ def build(ablate) -> ctypes.CDLL:
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.alphafive_resblock.restype = i32
-    lib.alphafive_resblock.argtypes = [i32] + [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.alphafive_resblock.argtypes = [i32] + [ptr] * 7 + [i32] * 4 + [ptr]
     lib.resblock_stamps_fetch.restype = i32
     lib.resblock_stamps_fetch.argtypes = [ptr]
     return lib
@@ -108,7 +108,7 @@ def profile(lib, b: int, s: int, c: int, seed: int = 0) -> dict:
     def call():
         err = lib.alphafive_resblock(
             1, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), b, s, s, c,
+            b2.data_ptr(), out.data_ptr(), None, b, s, s, c,
             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"resblock launch failed: CUDA error {err}")

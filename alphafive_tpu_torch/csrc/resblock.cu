@@ -19,7 +19,7 @@
 // A 3x3 'same' conv is nine shifted [HW, C] x [C, C] products, and what
 // feeds them is shared memory.
 //
-// Four kernels; the host picks one per shape with resblock_variant()
+// Five kernels; the host picks one per shape with resblock_variant()
 // (ops/resblock.py::variant mirrors it):
 //
 //   resident (bf16, C = 64, boards up to 15x15): the self-play path.
@@ -76,8 +76,21 @@
 //     accumulators, 16 shared loads of 16 B per 256 FMAs); the weight taps
 //     stream through a cp.async double buffer, tap t+1 landing while tap t
 //     multiplies.
-//   f32 plain (f32, every other shape): plain FMA, one sample per block, x
-//     read from device memory, y in shared memory.
+//   f32 plain (f32, C = 64, 96 or 128 where y of one sample fits in shared
+//     memory): plain FMA, one sample per block, x read from device memory,
+//     y in shared memory.
+//   general (bf16 or f32, every shape the four above refuse: any C >= 1, any
+//     board): the Pallas kernel tiles only the batch, so it takes any C and
+//     board; this variant does too. Persistent CTAs, one sample at a time;
+//     each conv is an implicit GEMM of the sample's h*w pixels (M) by the C
+//     output channels (N) over the 9 taps x C input channels (K), in 64 x 64
+//     output tiles, K in steps of 16 of one tap, staged as f32 through a
+//     double buffer in shared memory; each thread owns 4 pixels x 4
+//     channels. SIMT FMA with f32 accumulators, scalar loads with bounds
+//     checks, so no width or alignment is assumed. y sits in shared memory
+//     where it fits, else in this CTA's slice of a device workspace (grid x
+//     h*w*C elements) that the caller allocates. C is a runtime argument.
+//     Simple and slow: no tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,7 +106,8 @@ enum Variant {
   kStreaming = 0,
   kResident = 1,
   kTiled = 2,
-  kF32Plain = 3
+  kF32Plain = 3,
+  kGeneral = 4
 };
 
 // ---------------------------------------------------------------------------
@@ -1006,19 +1020,183 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace f32_plain
 
 // ---------------------------------------------------------------------------
+// general: bf16 or f32, any C >= 1 and any board, SIMT implicit GEMM
+
+namespace general {
+
+constexpr int BM = 64;        // pixels per output tile
+constexpr int BN = 64;        // output channels per output tile
+constexpr int BK = 16;        // input channels of one tap per K step
+constexpr int kRowA = BM + 4;  // floats per staged A row (2-way conflicts)
+constexpr int kStageFloats = BK * kRowA + BK * BN;
+constexpr int kStageBytes = 2 * kStageFloats * 4;  // 16,896: double buffer
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float v);
+template <>
+__device__ __forceinline__ float narrow<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__host__ __device__ constexpr long long y_bytes(int h, int w, int c,
+                                                int elem) {
+  return ((long long)h * w * c * elem + 15) / 16 * 16;
+}
+
+// y of one sample in shared memory beside the staging buffers, or not
+__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem) {
+  return kStageBytes + y_bytes(h, w, c, elem) <= kSmemLimit;
+}
+
+__host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem) {
+  return kStageBytes +
+         (y_in_smem(h, w, c, elem) ? (int)y_bytes(h, w, c, elem) : 0);
+}
+
+// One 3x3 'same' conv of one sample, src [h*w][c] -> dst [h*w][c]:
+// dst = T(relu(conv(src) + bias (+ res))). `src` may be shared or device
+// memory written earlier in this launch, so it is read by plain loads. K
+// step s is tap s / kc, input channels (s % kc) * BK + [0, BK). Loader
+// roles: A element (pixel tid / 16 + 16 j, channel tid % 16), B element
+// (input channel tid / 64 + 4 j, output channel tid % 64), j < 4.
+template <typename T, bool kResidual>
+__device__ void conv(const T* src, const T* __restrict__ wt,
+                     const float* __restrict__ bias,
+                     const T* __restrict__ res, T* dst, int h, int w, int c,
+                     float* stage) {
+  const int tid = threadIdx.x, hw = h * w;
+  const int tm = tid >> 4, tn = tid & 15;  // compute: 4 pixels x 4 channels
+  const int kc = (c + BK - 1) / BK, steps = 9 * kc;
+  for (int m0 = 0; m0 < hw; m0 += BM) {
+    int pr[4], pc[4];  // this thread's A pixels (row, column), pr < 0: none
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = m0 + (tid >> 4) + 16 * j;
+      pr[j] = p < hw ? p / w : -h - 2;
+      pc[j] = p < hw ? p - (p / w) * w : 0;
+    }
+    for (int n0 = 0; n0 < c; n0 += BN) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) acc[i][n] = 0.f;
+      float ra[4], rb[4];
+      auto load = [&](int s) {
+        const int t = s / kc, k0 = (s - t * kc) * BK;
+        const int dy = t / 3 - 1, dx = t % 3 - 1;
+        const int ci = k0 + (tid & 15);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = pr[j] + dy, q = pc[j] + dx;
+          const bool ok = ci < c && r >= 0 && r < h && q >= 0 && q < w;
+          ra[j] = ok ? widen(src[((size_t)r * w + q) * c + ci]) : 0.f;
+        }
+        const int n = n0 + (tid & 63);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int k = k0 + (tid >> 6) + 4 * j;
+          rb[j] = k < c && n < c ? widen(wt[((size_t)t * c + k) * c + n])
+                                 : 0.f;
+        }
+      };
+      auto store = [&](int buf) {
+        float* as = stage + buf * kStageFloats;
+        float* bs = as + BK * kRowA;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          as[(tid & 15) * kRowA + (tid >> 4) + 16 * j] = ra[j];
+          bs[((tid >> 6) + 4 * j) * BN + (tid & 63)] = rb[j];
+        }
+      };
+      load(0);
+      store(0);
+      __syncthreads();
+      for (int s = 0; s < steps; ++s) {
+        if (s + 1 < steps) load(s + 1);  // in flight under this step's FMAs
+        const float* as = stage + (s & 1) * kStageFloats;
+        const float* bs = as + BK * kRowA;
+#pragma unroll
+        for (int kk = 0; kk < BK; ++kk) {
+          const float4 a =
+              *reinterpret_cast<const float4*>(as + kk * kRowA + 4 * tm);
+          const float4 b =
+              *reinterpret_cast<const float4*>(bs + kk * BN + 4 * tn);
+          const float av[4] = {a.x, a.y, a.z, a.w};
+          const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              acc[i][n] = fmaf(av[i], bv[n], acc[i][n]);
+        }
+        // the other buffer was last read in step s - 1, before the barrier
+        if (s + 1 < steps) store((s + 1) & 1);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = m0 + 4 * tm + i;
+        if (p >= hw) continue;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int ch = n0 + 4 * tn + n;
+          if (ch >= c) continue;
+          float v = acc[i][n] + __ldg(bias + ch);
+          if (kResidual) v += widen(res[(size_t)p * c + ch]);
+          dst[(size_t)p * c + ch] = narrow<T>(fmaxf(v, 0.f));
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    kernel(const T* __restrict__ x, const T* __restrict__ w1,
+           const float* __restrict__ b1, const T* __restrict__ w2,
+           const float* __restrict__ b2, T* __restrict__ out, T* workspace,
+           int nb, int h, int w, int c) {
+  extern __shared__ __align__(16) unsigned char smem_general[];
+  float* stage = reinterpret_cast<float*>(smem_general);
+  const size_t sample = (size_t)h * w * c;
+  T* ys = y_in_smem(h, w, c, sizeof(T))
+              ? reinterpret_cast<T*>(smem_general + kStageBytes)
+              : workspace + blockIdx.x * sample;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+    const T* xb = x + b * sample;
+    conv<T, false>(xb, w1, b1, nullptr, ys, h, w, c, stage);
+    __syncthreads();  // y complete before conv 2 reads it
+    conv<T, true>(ys, w2, b2, xb, out + b * sample, h, w, c, stage);
+    __syncthreads();  // y read before the next sample's conv 1 writes it
+  }
+}
+
+}  // namespace general
+
+// ---------------------------------------------------------------------------
 // host side
 
 int resblock_variant(int dtype, int h, int w, int c) {
-  if ((dtype != 0 && dtype != 1) || (c != 64 && c != 96 && c != 128) ||
-      h < 1 || w < 1)
-    return kRefused;
+  if ((dtype != 0 && dtype != 1) || h < 1 || w < 1 || c < 1) return kRefused;
+  const bool fast = c == 64 || c == 96 || c == 128;  // instantiated widths
   if (dtype == 1) {
     if (c == 64 && resident::fits(h, w)) return kResident;
-    return streaming::fits(h, w, c) ? kStreaming : kRefused;
+    if (fast && streaming::fits(h, w, c)) return kStreaming;
+    return kGeneral;
   }
   if (c == 64 && h * w <= 256 && tiled::smem_bytes(h, w) <= kSmemLimit)
     return kTiled;
-  return h * w * c * 4 <= kSmemLimit ? kF32Plain : kRefused;
+  if (fast && h * w * c * 4 <= kSmemLimit) return kF32Plain;
+  return kGeneral;
 }
 
 int persistent_grid(int b) {
@@ -1026,6 +1204,15 @@ int persistent_grid(int b) {
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return b < sms ? b : sms;
+}
+
+// Bytes of device workspace the general variant needs for a batch of b:
+// y of one sample per CTA where it does not fit in shared memory, else 0.
+long long workspace_bytes(int dtype, int b, int h, int w, int c) {
+  if (b < 1 || resblock_variant(dtype, h, w, c) != kGeneral) return 0;
+  const int elem = dtype == 1 ? 2 : 4;
+  if (general::y_in_smem(h, w, c, elem)) return 0;
+  return (long long)persistent_grid(b) * h * w * c * elem;
 }
 
 template <typename K, typename... Args>
@@ -1062,19 +1249,29 @@ cudaError_t launch_per_channels(int variant, const void* x, const void* w1,
 }  // namespace
 
 // Which kernel alphafive_resblock runs for this shape: 0 streaming (bf16),
-// 1 resident (bf16), 2 tiled (f32), 3 f32 plain, -1 none fits in shared
-// memory (alphafive_resblock then refuses it).
+// 1 resident (bf16), 2 tiled (f32), 3 f32 plain, 4 general (either type,
+// any C >= 1 and board), -1 refused (a dtype other than 0 or 1, or a
+// dimension below 1).
 extern "C" int alphafive_resblock_variant(int dtype, int h, int w, int c) {
   return resblock_variant(dtype, h, w, c);
 }
 
+// Bytes of device workspace alphafive_resblock needs for this batch and
+// shape (0 for every variant but general where y does not fit in shared
+// memory); the caller allocates it and passes it as `workspace`.
+extern "C" long long alphafive_resblock_workspace(int dtype, int b, int h,
+                                                  int w, int c) {
+  return workspace_bytes(dtype, b, h, w, c);
+}
+
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
-// the caller has checked shapes, types, contiguity and alignment. Launches
-// on `stream` and does not synchronise.
+// the caller has checked shapes, types, contiguity and alignment, and
+// passes alphafive_resblock_workspace bytes at `workspace` (may be null
+// when that is 0). Launches on `stream` and does not synchronise.
 extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
                                   const void* b1, const void* w2,
-                                  const void* b2, void* out, int b, int h,
-                                  int w, int c, void* stream) {
+                                  const void* b2, void* out, void* workspace,
+                                  int b, int h, int w, int c, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b == 0) return cudaSuccess;
   const int variant = resblock_variant(dtype, h, w, c);
@@ -1102,6 +1299,28 @@ extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
                     static_cast<const float*>(w2),
                     static_cast<const float*>(b2), static_cast<float*>(out),
                     b, h, w);
+    case kGeneral: {
+      if (workspace_bytes(dtype, b, h, w, c) > 0 && workspace == nullptr)
+        return cudaErrorInvalidValue;
+      const int grid = persistent_grid(b);
+      const auto* b1f = static_cast<const float*>(b1);
+      const auto* b2f = static_cast<const float*>(b2);
+      if (dtype == 1) {
+        using T = __nv_bfloat16;
+        return launch(general::kernel<T>, grid, kThreads,
+                      general::smem_bytes(h, w, c, 2), s,
+                      static_cast<const T*>(x), static_cast<const T*>(w1), b1f,
+                      static_cast<const T*>(w2), b2f, static_cast<T*>(out),
+                      static_cast<T*>(workspace), b, h, w, c);
+      }
+      return launch(general::kernel<float>, grid, kThreads,
+                    general::smem_bytes(h, w, c, 4), s,
+                    static_cast<const float*>(x),
+                    static_cast<const float*>(w1), b1f,
+                    static_cast<const float*>(w2), b2f,
+                    static_cast<float*>(out), static_cast<float*>(workspace),
+                    b, h, w, c);
+    }
     case kStreaming:
     case kF32Plain:
       switch (c) {

@@ -52,6 +52,15 @@
 //   * The chosen child id comes from the lane that holds it by one
 //     shuffle, not from a second load. Every lane then knows the next row;
 //     lane 0 writes the path entry, a store nothing waits on.
+//
+// Rows wider than 8 chunks (A_pad > 1024, boards above 32x32) do not fit
+// in a lane's registers. select_stream_kernel takes them: the same warp
+// per env, but each step streams the row in groups of 8 chunks, twice.
+// The first pass sums N (exact in any order); the second scores each slot
+// exactly (the plain formula's two divisions, no approximate filter) and
+// carries the lane's running (score, index) best under better(), with the
+// child id of that best, so the argmax, the first-maximum tie rule and the
+// child's shuffle are those of the register-resident kernel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,7 +70,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kChunk = 4 * kWarp;  // actions one float4 per lane covers
-constexpr int kMaxChunks = 8;      // A_pad <= 1024
+constexpr int kMaxChunks = 8;      // register-resident rows: A_pad <= 1024
 constexpr int kNumSec = 8;
 constexpr int kSecN = 0, kSecW = 1, kSecP = 2, kSecChild = 3, kSecMeta = 4;
 constexpr unsigned kFull = 0xffffffffu;
@@ -284,6 +293,136 @@ __global__ void __launch_bounds__(kWarp)
   }
 }
 
+// The exact score of one slot, the plain version's formula and op order.
+__device__ __forceinline__ float exact_score(float n, float w, float p, int a,
+                                             int num_actions, int depth,
+                                             float c_puct, float forced_k,
+                                             float sqrt_ns, float ns_m1) {
+  const bool legal = p >= 0.0f && a < num_actions;
+  const float pp = fmaxf(p, 0.0f);
+  const float x = __fmul_rn(__fmul_rn(c_puct, pp), sqrt_ns);
+  const bool forced =
+      legal && depth == 0 && n > 0.0f &&
+      __fmul_rn(n, n) < __fmul_rn(__fmul_rn(forced_k, pp), ns_m1);
+  const float q = n > 0.0f ? __fdiv_rn(w, fmaxf(n, 1.0f)) : 0.0f;
+  const float u = __fdiv_rn(x, __fadd_rn(1.0f, n));
+  return !legal ? -INFINITY : forced ? INFINITY : __fadd_rn(q, u);
+}
+
+// A_pad = J * 128 for any J: the row streamed in groups of kMaxChunks
+// chunks (lane l holds actions 128 j + 4 l + i, as above), twice a step.
+__global__ void __launch_bounds__(kWarp)
+    select_stream_kernel(const float* __restrict__ packed, int nn, int a_pad,
+                         int num_actions, int depth_limit, float c_puct,
+                         float forced_k, int* __restrict__ leaf_out,
+                         int* __restrict__ act_out,
+                         int* __restrict__ depth_out, int* __restrict__ pn,
+                         int* __restrict__ pa) {
+  constexpr int G = kMaxChunks;
+  const int J = a_pad / kChunk;
+  const size_t row_len = static_cast<size_t>(kNumSec) * a_pad;
+  const int env = blockIdx.x;
+  const int lane = threadIdx.x;
+  const float* tree = packed + static_cast<size_t>(env) * nn * row_len;
+  int* pn_row = pn + static_cast<size_t>(env) * depth_limit;
+  int* pa_row = pa + static_cast<size_t>(env) * depth_limit;
+
+  int cur = 0, depth = 0, act = -1;
+  bool stopped = false;
+  for (int it = 0; it < depth_limit; ++it) {
+    const float* row = tree + static_cast<size_t>(cur) * row_len;
+    const float4* row4 = reinterpret_cast<const float4*>(row);
+    const float terminal = __ldg(row + kSecMeta * a_pad);
+    float total = 0.0f;
+    for (int j0 = 0; j0 < J; j0 += G) {
+      float4 n4[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (j0 + g < J)
+          n4[g] = __ldg(row4 + kSecN * a_pad / 4 + (j0 + g) * kWarp + lane);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (j0 + g >= J) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) total = __fadd_rn(total, elem(n4[g], i));
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      total = __fadd_rn(total, __shfl_xor_sync(kFull, total, off));
+    const float ns = __fadd_rn(1.0f, total);
+    const float sqrt_ns = __fsqrt_rn(ns);
+    const float ns_m1 = __fsub_rn(ns, 1.0f);
+
+    float best = -INFINITY, child = -1.0f;
+    int bidx = a_pad;
+    for (int j0 = 0; j0 < J; j0 += G) {
+      float4 n4[G], w4[G], p4[G], c4[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+        if (j0 + g < J) {
+          const int q = (j0 + g) * kWarp + lane;
+          n4[g] = __ldg(row4 + kSecN * a_pad / 4 + q);
+          w4[g] = __ldg(row4 + kSecW * a_pad / 4 + q);
+          p4[g] = __ldg(row4 + kSecP * a_pad / 4 + q);
+          c4[g] = __ldg(row4 + kSecChild * a_pad / 4 + q);
+        }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (j0 + g >= J) continue;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int a = (j0 + g) * kChunk + 4 * lane + i;
+          const float s = exact_score(elem(n4[g], i), elem(w4[g], i),
+                                      elem(p4[g], i), a, num_actions, depth,
+                                      c_puct, forced_k, sqrt_ns, ns_m1);
+          if (better(s, a, best, bidx)) {
+            best = s;
+            bidx = a;
+            child = elem(c4[g], i);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ob = __shfl_xor_sync(kFull, best, off);
+      const int oi = __shfl_xor_sync(kFull, bidx, off);
+      if (better(ob, oi, best, bidx)) {
+        best = ob;
+        bidx = oi;
+      }
+    }
+    // the winner is the best of the lane that holds it: its child id
+    const int ch = static_cast<int>(
+        __shfl_sync(kFull, child, (bidx % kChunk) / 4));
+    const bool revisit = terminal > 0.5f || depth >= depth_limit;
+    if (!revisit) {
+      if (lane == 0) {
+        pn_row[depth] = cur;
+        pa_row[depth] = bidx;
+      }
+      ++depth;
+    }
+    act = revisit ? -1 : bidx;
+    if (revisit || ch < 0) {
+      stopped = true;
+      break;
+    }
+    cur = ch;
+  }
+
+  if (lane == 0) {
+    leaf_out[env] = cur;
+    act_out[env] = stopped ? act : -1;
+    depth_out[env] = depth;
+  }
+  for (int i = depth + lane; i < depth_limit; i += kWarp) {
+    pn_row[i] = 0;
+    pa_row[i] = 0;
+  }
+}
+
 template <int J>
 cudaError_t launch(const float* packed, int e, int nn, int num_actions,
                    int depth_limit, float c_puct, float forced_k, int* leaf,
@@ -305,8 +444,8 @@ extern "C" int alphafive_select(const void* packed, int e, int nn, int a_pad,
                                 void* act, void* depth, void* pn, void* pa,
                                 void* stream) {
   if (e == 0) return cudaSuccess;
-  if (a_pad % kChunk != 0 || a_pad < kChunk || a_pad > kChunk * kMaxChunks ||
-      depth_limit < 1 || depth_limit > nn)
+  if (a_pad % kChunk != 0 || a_pad < kChunk || depth_limit < 1 ||
+      depth_limit > nn)
     return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(packed) % 16 != 0)
     return cudaErrorMisalignedAddress;
@@ -332,7 +471,11 @@ extern "C" int alphafive_select(const void* packed, int e, int nn, int a_pad,
                              forced_k, l, a, d, n, x, s);
     case 7: return launch<7>(p, e, nn, num_actions, depth_limit, c_puct,
                              forced_k, l, a, d, n, x, s);
-    default: return launch<8>(p, e, nn, num_actions, depth_limit, c_puct,
-                              forced_k, l, a, d, n, x, s);
+    case 8: return launch<8>(p, e, nn, num_actions, depth_limit, c_puct,
+                             forced_k, l, a, d, n, x, s);
   }
+  select_stream_kernel<<<e, kWarp, 0, s>>>(p, nn, a_pad, num_actions,
+                                           depth_limit, c_puct, forced_k, l,
+                                           a, d, n, x);
+  return cudaGetLastError();
 }

@@ -68,7 +68,9 @@ def _run(cmds, out_dir: str) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.alphafive_resblock.restype = i32
-    lib.alphafive_resblock.argtypes = [i32] + [ptr] * 6 + [i32] * 4 + [ptr]
+    lib.alphafive_resblock.argtypes = [i32] + [ptr] * 7 + [i32] * 4 + [ptr]
+    lib.alphafive_resblock_workspace.restype = ctypes.c_longlong
+    lib.alphafive_resblock_workspace.argtypes = [i32] * 5
     lib.alphafive_resblock_variant.restype = i32
     lib.alphafive_resblock_variant.argtypes = [i32] * 4
     lib.alphafive_select.restype = i32

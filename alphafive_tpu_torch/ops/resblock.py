@@ -18,11 +18,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-CHANNELS = (64, 96, 128)
+CHANNELS = (64, 96, 128)  # the widths the fast variants are built for
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
+# csrc/resblock.cu's general variant: its double-buffered f32 staging of
+# one 64-pixel x 16-channel A tile (rows padded to 68) and one 16 x 64 B
+# tile, beside y of one sample where that fits
+_GENERAL_STAGE = 2 * (16 * 68 + 16 * 64) * 4
 
 # csrc/resblock.cu's variant codes (alphafive_resblock_variant)
-VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 3: "f32_plain"}
+VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 3: "f32_plain",
+            4: "general"}
 resblock_launches = 0  # kernel launches since the last reset
 # the same launches by the variant the library ran (see `variant`)
 variant_launches = dict.fromkeys(VARIANTS.values(), 0)
@@ -73,7 +78,16 @@ def fused_resblock_reference(x, w1, b1, w2, b2) -> torch.Tensor:
 # such buffers of 2 x (48 or 120) positions; "streaming" one buffer of
 # 3 x 128 positions beside a ring of 3 taps. "tiled" (f32) double-buffers
 # one 16 KB tap beside two halo-padded buffers of 272 B rows; "f32_plain"
-# holds y of one sample.
+# holds y of one sample; "general" its staging tiles, and y of one sample
+# where that fits (else y goes to a device workspace, `_y_in_smem`).
+def _y_bytes(h: int, w: int, c: int, bf16: bool) -> int:
+    return (h * w * c * (2 if bf16 else 4) + 15) // 16 * 16
+
+
+def _y_in_smem(h: int, w: int, c: int, bf16: bool) -> bool:
+    return _GENERAL_STAGE + _y_bytes(h, w, c, bf16) <= _SMEM_LIMIT
+
+
 def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
     def rows(positions):
         return (positions + 2 * (w + 1) + 9) // 8 * 8 + 1
@@ -84,6 +98,9 @@ def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
         return (2 * c * c + 2 * (h + 2) * (w + 2) * (c + 4)) * 4
     if variant == "streaming":
         return 3 * c * c * 2 + (c // 8) * rows(384) * 16
+    if variant == "general":
+        return _GENERAL_STAGE + (_y_bytes(h, w, c, bf16)
+                                 if _y_in_smem(h, w, c, bf16) else 0)
     return h * w * c * 4
 
 
@@ -91,24 +108,25 @@ def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
     """The kernel variant that runs an [*, h, w, c] block of `dtype`:
     "resident" (bf16, C = 64, h·(w + 1) up to 240, e.g. 15×15: weights
     resident, wgmma), "tiled" (f32, C = 64, up to 256 pixels: register-
-    blocked SIMT), "streaming" (any other bf16 shape up to h·(w + 1) = 384,
-    e.g. 19×19: taps streamed, wgmma) or "f32_plain" (any other f32 shape:
-    plain FMA). Raises when no variant fits."""
+    blocked SIMT), "streaming" (bf16, C in CHANNELS, up to h·(w + 1) =
+    384, e.g. 19×19: taps streamed, wgmma), "f32_plain" (f32, C in
+    CHANNELS, y of one sample in shared memory: plain FMA), or "general"
+    (every other shape: any other C, e.g. 16 or 256; bf16 boards from
+    20×20 up; f32 samples whose y exceeds shared memory, e.g. 19×19×192:
+    SIMT implicit GEMM, no width or board limit)."""
+    if min(h, w, c) < 1:
+        raise ValueError(f"{h}x{w}x{c}: every dimension must be at least 1")
     bf16 = dtype == torch.bfloat16
-    cells = h * (w + 1)
+    cells, fast = h * (w + 1), c in CHANNELS
     if bf16:
-        kinds = ([("resident", cells <= 240)] if c == 64 else []) + [
-            ("streaming", cells <= 384)]
+        kinds = [("resident", c == 64 and cells <= 240),
+                 ("streaming", fast and cells <= 384)]
     else:
-        kinds = ([("tiled", h * w <= 256)] if c == 64 else []) + [
-            ("f32_plain", True)]
+        kinds = [("tiled", c == 64 and h * w <= 256), ("f32_plain", fast)]
     for v, shape_ok in kinds:
-        need = _smem_bytes(v, h, w, c, bf16)
-        if shape_ok and need <= _SMEM_LIMIT:
+        if shape_ok and _smem_bytes(v, h, w, c, bf16) <= _SMEM_LIMIT:
             return v
-    raise ValueError(f"{h}x{w}x{c} {dtype}: no kernel variant takes this "
-                     f"shape within {_SMEM_LIMIT} bytes of shared memory "
-                     f"per block (the last tried needs {need})")
+    return "general"
 
 
 def _check(x, w1, b1, w2, b2) -> str:
@@ -118,8 +136,6 @@ def _check(x, w1, b1, w2, b2) -> str:
     b, h, w, c = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"unsupported dtype {x.dtype}")
-    if c not in CHANNELS:
-        raise ValueError(f"channels {c} not in {CHANNELS}")
     for name, t, shape, dt in (("w1", w1, (9, c, c), x.dtype),
                                ("w2", w2, (9, c, c), x.dtype),
                                ("b1", b1, (c,), torch.float32),
@@ -157,9 +173,13 @@ def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
         raise RuntimeError(f"{h}x{w}x{c} {x.dtype}: variant() picks {kind}, "
                            f"csrc/resblock.cu {ran or 'none'}")
     with torch.cuda.device(x.device):
+        n = lib.alphafive_resblock_workspace(bf16, b, h, w, c)
+        # y of each persistent CTA where it does not fit in shared memory
+        ws = torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
         err = lib.alphafive_resblock(
             bf16, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), b, h, w, c,
+            b2.data_ptr(), out.data_ptr(), None if ws is None else
+            ws.data_ptr(), b, h, w, c,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"resblock kernel launch failed: CUDA error {err}")

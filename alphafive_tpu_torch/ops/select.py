@@ -100,8 +100,6 @@ def _check(packed: torch.Tensor, num_actions: int, depth_limit: int):
         raise TypeError(f"packed must be float32, got {packed.dtype}")
     if a_pad != pad_actions(num_actions) or num_actions < 1:
         raise ValueError(f"A_pad {a_pad} != pad_actions({num_actions})")
-    if a_pad > 1024:
-        raise ValueError(f"A_pad {a_pad} > 1024 (boards up to 32x32)")
     if not 1 <= depth_limit <= nn:
         raise ValueError(f"depth_limit {depth_limit} not in [1, {nn}]")
     if nn >= 1 << 24:

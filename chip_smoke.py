@@ -138,6 +138,24 @@ SHAPES += [(b, 15, 64, torch.bfloat16, "resident")
            for b in TWO_RANK_BATCHES]
 SHAPES += [(4096, 19, 128, torch.bfloat16, "streaming"),
            (512, 19, 128, torch.bfloat16, "streaming")]
+# the general variant (every shape the four fast ones refuse): JAX's own
+# test shapes (f32 5x5 x 16 and 7x7 x 32), tiny_test's board and width in
+# bf16 at a batch of 256, C not a multiple of 8 (48 and 20), then phase
+# general_shapes' leaf forwards: chip_15x15 at 256 channels and on a 21x21
+# board (2,048 leaves), the 33x33 search's board, and f32 beyond
+# f32_plain's shared memory. GENERAL_ROW is the row the kernels line shows
+GENERAL_SHAPES = [(4, 5, 16, torch.float32), (4, 7, 32, torch.float32),
+                  (256, 5, 16, torch.bfloat16),
+                  (2048, 15, 48, torch.bfloat16), (64, 9, 20, torch.bfloat16),
+                  (2048, 15, 256, torch.bfloat16),
+                  (2048, 21, 64, torch.bfloat16),
+                  (256, 33, 64, torch.bfloat16),
+                  (256, 19, 192, torch.float32)]
+SHAPES += [(b, s, c, dt, "general") for b, s, c, dt in GENERAL_SHAPES]
+GENERAL_ROW = (2048, 15, 256)
+# the general rows' host time per call: fewer unsynchronised calls (each
+# launch takes milliseconds, so the host waits on the device's queue)
+GENERAL_HOST_CALLS = 20
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -161,10 +179,14 @@ CAPPED_ENVS = 256              # positions of the capped/full-width check
 # packed-tree search: 400 sims per move, descents capped at 64 edges
 SIMS, DEPTH = 400, 64
 # select kernel vs plain: (bundle, envs) of the searches whose trees are
-# compared; the first two are the 15×15 shapes, the last a 19×19 tree. The
+# compared; the first two are the 15×15 shapes, the third a 19×19 tree. The
 # first tree's env 0 alone is compared too: E = 1, the shape cli eval
 # launches
 SELECT_TREES = [("15x15", 16), ("15x15", 256), ("19x19", 16)]
+# and a 33×33 tree (A_pad 1152: the kernel's chunk-streaming path), from a
+# search with chip_15x15's net on that board, random weights
+RANDOM_33 = "random_33x33"
+SELECT_TREES += [(RANDOM_33, 16)]
 FORCED_K = 2.0   # the forced-playout gate's k in the second comparison
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
 # tensor cores, f32 outside the tensor cores, device memory
@@ -235,6 +257,18 @@ ITER_KEYS = {"t", "kind", "iter", "black_wins", "buffer_size", "draws",
              "value_loss", "value_mae", "white_wins", "z_valid_frac",
              "iter_seconds", "env_steps_per_s", "env_steps_per_s_per_chip",
              "sims_per_s", "lr_at_floor", "lr_at_ceiling"}
+# phase general_shapes: tiny_test's cli train with the kernel (5×5 × 16,
+# f32: 2 iterations, before any eval or checkpoint falls due but the
+# final checkpoint); one ply of chip_15x15 self-play at 256 channels (cut
+# to 64 sims a move: 8 passes of 2,048 leaves) and on a 21×21 board (the
+# preset's 400 sims), random weights; a 64-sim packed search of one env on
+# a 33×33 board
+GENERAL_TRAIN_ARGV = ["train", "--preset", "tiny_test",
+                      "--set", "net.use_pallas=true", "--iters", "2"]
+GENERAL_PLIES = 1
+GENERAL_WIDE = ["net.channels=256", "mcts.num_simulations=64"]
+GENERAL_BOARD = ["env.board_size=21"]
+GENERAL_SEARCH_SIMS = 64
 # cli eval: two games against the rollout anchor at a small budget
 EVAL_ARGV = ["eval", "--preset", "chip_15x15",
              "--set", "mcts.select_impl=pallas",
@@ -305,11 +339,13 @@ def phase_select_latency(plib):
     return inputs
 
 
-def timed(row: dict, kernel, plain) -> None:
+def timed(row: dict, kernel, plain,
+          host_calls: int = timing.HOST_CALLS) -> None:
     """Device ms of the kernel's wrapper (graph replay), its host µs per
-    call, and the plain version's eager ms, into `row`."""
+    call over `host_calls` calls, and the plain version's eager ms, into
+    `row`."""
     row["ms"], row["ms_spread"] = timing.graph_ms(kernel)
-    row["host_us_per_call"] = timing.host_us_per_call(kernel)
+    row["host_us_per_call"] = timing.host_us_per_call(kernel, host_calls)
     row["plain_ms"], row["plain_ms_spread"] = timing.eager_ms(plain)
 
 
@@ -340,7 +376,8 @@ def phase_kernel_vs_plain():
             emit("kernel_vs_plain", **row, ok=False)
             raise AssertionError(f"resblock kernel disagrees: {row}")
         timed(row, lambda: rb.fused_resblock(x, w1, b1, w2, b2),
-              lambda: rb.fused_resblock_reference(x, w1, b1, w2, b2))
+              lambda: rb.fused_resblock_reference(x, w1, b1, w2, b2),
+              GENERAL_HOST_CALLS if kind == "general" else timing.HOST_CALLS)
         # cuDNN's best algorithm, picked in the warm-up before the capture
         torch.backends.cudnn.benchmark = True
         row["library_ms"], row["library_ms_spread"] = timing.graph_ms(
@@ -916,17 +953,31 @@ def phase_replay(traj, cfg, card: str):
         raise AssertionError("replay phase failed its checks")
 
 
-def packed_search(bundle: str, envs: int, seed: int, select=None):
-    """Search `envs` random positions with a bundle net on the packed tree:
-    (SearchResult, PackedTree, seconds), f32 priors and values."""
+def random_net(board: int):
+    """chip_15x15's net (4 blocks × 64, bf16, the resblock kernel) on a
+    `board`×`board` board, random weights from seed 0: (params, stats,
+    cfg)."""
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.models.resnet import init_params
+    cfg = apply_overrides(get_preset("chip_15x15"), [
+        "net.use_pallas=true", f"env.board_size={board}"])
+    return (*init_params(cfg.env, cfg.net, seed=0), cfg)
+
+
+def packed_search(bundle: str, envs: int, seed: int, select=None,
+                  sims: int = SIMS):
+    """Search `envs` random positions with a bundle net (or, for
+    RANDOM_33, random_net(33)) on the packed tree: (SearchResult,
+    PackedTree, seconds), f32 priors and values."""
     from alphafive_tpu_torch.config import MCTSConfig
     from alphafive_tpu_torch.mcts.search_packed import run_mcts_packed
     from alphafive_tpu_torch.models.evaluator import net_evaluator
     from alphafive_tpu_torch.train.checkpoint import load_model
-    params, stats, cfg = load_model(os.path.join(ROOT, "pretrained", bundle))
+    params, stats, cfg = (random_net(33) if bundle == RANDOM_33 else
+                          load_model(os.path.join(ROOT, "pretrained", bundle)))
     evaluate = net_evaluator(cfg.env, cfg.net, params, stats, "cuda")
     st = random_states(cfg.env, envs, 30, seed)
-    mcts = MCTSConfig(num_simulations=SIMS, max_depth=DEPTH,
+    mcts = MCTSConfig(num_simulations=sims, max_depth=DEPTH,
                       select_impl="pallas")
     kw = {} if select is None else {"select": select}
     torch.cuda.synchronize()
@@ -2039,6 +2090,180 @@ def phase_train_nccl_one_rank(card: str):
     return a["launches"]
 
 
+def general_counts(fn):
+    """Run `fn()` with the resblock counts (by variant, with the shapes it
+    launched at) and the select launches set to 0 just before and read
+    just after: (result, seconds, counts)."""
+    shapes, fused = set(), rb.fused_resblock
+
+    def recording(x, *args):
+        shapes.add((x.shape[1], x.shape[2], x.shape[3], str(x.dtype)[6:]))
+        return fused(x, *args)
+
+    rb.resblock_launches = 0
+    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    sel.select_launches = 0
+    t0 = time.perf_counter()
+    with patched((rb, "fused_resblock", recording)):
+        out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, dict(
+        resblock_launches=rb.resblock_launches,
+        variant_launches=dict(rb.variant_launches),
+        resblock_shapes=sorted(shapes), select_launches=sel.select_launches)
+
+
+def all_general(counts: dict) -> bool:
+    return 0 < counts["resblock_launches"] == counts["variant_launches"][
+        "general"]
+
+
+def general_train(card: str) -> dict:
+    """`cli train --preset tiny_test --set net.use_pallas=true`, 2
+    iterations (no eval falls due): finite losses in metrics.jsonl, the
+    second iteration updating, every resblock launch general."""
+    from alphafive_tpu_torch import cli
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_tiny_")
+    argv = [*GENERAL_TRAIN_ARGV, "--workdir", workdir]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc, seconds, counts = general_counts(lambda: cli.main(argv))
+        iters = [r for r in records(workdir) if r["kind"] == "iter"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    losses = [[r[k] for k in ("loss", "policy_loss", "value_loss")]
+              for r in iters]
+    fails = [k for k, ok in (
+        ("rc", rc == 0), ("iterations", len(iters) == 2),
+        ("updated", len(iters) == 2 and iters[1]["updated"] == 1.0),
+        ("finite_losses", all(math.isfinite(x) for ls in losses
+                              for x in ls)),
+        ("all_general", all_general(counts))) if not ok]
+    emit("general_shapes", run="tiny_test_cli_train", argv=argv,
+         seconds=seconds, losses=losses, **counts, nvidia_smi=nvidia_smi(),
+         card=card, failed=fails, ok=not fails)
+    return dict(counts, fails=fails)
+
+
+def general_selfplay(name: str, overrides: list, card: str) -> dict:
+    """One ply of chip_15x15 self-play (random weights from seed 0)
+    through selfplay_bench.run with `overrides`: the checks of
+    selfplay_run, every resblock launch general, and the first pass's
+    leaf forward against the plain twin within NET_TOL."""
+    from alphafive_tpu_torch.benchmarks import selfplay_bench
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.models.resnet import (FusedPolicyValueNet,
+                                                   init_params)
+    cfg = apply_overrides(get_preset("chip_15x15"),
+                          ["net.use_pallas=true", *overrides])
+    params, stats = init_params(cfg.env, cfg.net, seed=0)
+    make, leaf = selfplay_bench.net_evaluator, []
+
+    def capturing(*args, **kw):
+        evaluate = make(*args, **kw)
+
+        def first_leaf(board, to_play, last):
+            if not leaf and board.shape[0] != cfg.train.num_envs:
+                leaf.append((board.clone(), to_play.clone(), last.clone()))
+            return evaluate(board, to_play, last)
+        return first_leaf
+
+    with patched((selfplay_bench, "net_evaluator", capturing)):
+        run, seconds, counts = general_counts(lambda: selfplay_run(
+            cfg, params, stats, GENERAL_PLIES, 0))
+    sims, lb = cfg.mcts.num_simulations, cfg.mcts.leaf_batch
+    want = cfg.net.blocks * (sims // lb + 1) * run["plies"]
+    feats = vector.features(cfg.env, *leaf[0])
+    logits, value = FusedPolicyValueNet(cfg.env, cfg.net, params, stats,
+                                        "cuda")(feats)
+    ref_logits, ref_value = FusedPolicyValueNet(
+        cfg.env, cfg.net, params, stats, "cuda", plain=True)(feats)
+    torch.cuda.synchronize()
+    lerr = (logits - ref_logits).abs()
+    verr = (value - ref_value).abs().max().item()
+    atol, rtol = NET_TOL["logits"]
+    fails = [k for k, ok in (
+        ("failed_checks", run["failed_checks"] == 0),
+        ("plies", run["plies"] == GENERAL_PLIES), ("pi", run["pi_ok"]),
+        ("launches", counts["resblock_launches"] == want),
+        ("all_general", all_general(counts)),
+        ("leaf_forward", bool(
+            torch.isfinite(logits).all() and torch.isfinite(value).all()
+            and (lerr <= atol + rtol * ref_logits.abs()).all()
+            and verr <= NET_TOL["value"]))) if not ok]
+    emit("general_shapes", run=name, preset=cfg.name, overrides=overrides,
+         board=cfg.env.board_size, channels=cfg.net.channels,
+         blocks=cfg.net.blocks, envs=cfg.train.num_envs, sims=sims,
+         plies=run["plies"], seconds=seconds,
+         ply_seconds=run["out"]["compile_seconds"], expected_launches=want,
+         **counts, leaf_batch=int(feats.shape[0]),
+         leaf_logits_max_abs_err=lerr.max().item(),
+         leaf_value_max_abs_err=verr, tol=NET_TOL,
+         failed_checks=run["failed_checks"], nvidia_smi=nvidia_smi(),
+         card=card, failed=fails, ok=not fails)
+    return dict(counts, fails=fails)
+
+
+def general_search(card: str) -> dict:
+    """run_mcts_packed on a 33×33 board (A_pad 1152), one env, 64 sims,
+    random_net(33): every select launch at A_pad 1152 (the kernel's
+    chunk-streaming path), every resblock launch general at 33×33 × 64,
+    visits bit-equal to the plain descent's on the same net."""
+    pads = []
+
+    def select(packed, *args):
+        pads.append(packed.shape[-1])
+        return sel.select_batch(packed, *args)
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    (res_k, _, t_k, _), seconds, counts = general_counts(
+        lambda: packed_search(RANDOM_33, 1, seed=40, select=select,
+                              sims=GENERAL_SEARCH_SIMS))
+    res_p, _, t_p, _ = packed_search(RANDOM_33, 1, seed=40,
+                                     select=sel.select_batch_reference,
+                                     sims=GENERAL_SEARCH_SIMS)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(res_k.visits, res_p.visits)
+                 and torch.equal(res_k.root_value, res_p.root_value))
+    fails = [k for k, ok in (
+        ("select_launches", counts["select_launches"]
+         == GENERAL_SEARCH_SIMS == len(pads)),
+        ("a_pad", set(pads) == {1152}),
+        ("all_general", all_general(counts)),
+        ("shapes", counts["resblock_shapes"] == [(33, 33, 64, "bfloat16")]),
+        ("visits_sum", bool((res_k.visits.sum(-1)
+                             == GENERAL_SEARCH_SIMS).all())),
+        ("kernel_equals_plain", equal)) if not ok]
+    emit("general_shapes", run="search_packed_33x33", envs=1,
+         sims=GENERAL_SEARCH_SIMS, a_pad=sorted(set(pads)), seconds=seconds,
+         kernel_seconds=t_k, plain_seconds=t_p, **counts,
+         kernel_equals_plain=equal, nvidia_smi=nvidia_smi(), card=card,
+         failed=fails, ok=not fails)
+    return dict(counts, fails=fails)
+
+
+def phase_general_shapes(card: str) -> dict:
+    """The shapes only the general resblock variant and the select
+    kernel's streaming path take, through the entry points: tiny_test's
+    cli train, chip_15x15 self-play at 256 channels and on a 21×21 board,
+    and a packed search on 33×33. One line per run; raises after all ran
+    if any failed."""
+    runs = {"tiny_test_cli_train": general_train(card),
+            "selfplay_256_channels": general_selfplay(
+                "selfplay_256_channels", GENERAL_WIDE, card),
+            "selfplay_21x21": general_selfplay("selfplay_21x21",
+                                               GENERAL_BOARD, card),
+            "search_packed_33x33": general_search(card)}
+    failed = {k: r["fails"] for k, r in runs.items() if r["fails"]}
+    if failed:
+        raise AssertionError(f"general_shapes failed its checks: {failed}")
+    return {k: sum(r[k] for r in runs.values())
+            for k in ("resblock_launches", "select_launches")}
+
+
 def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2078,12 +2303,15 @@ def main() -> int:
     sel_rows = phase_select_kernel_vs_plain(latency)
     phase_search_packed(card)
     sel_launches = phase_eval(card)
+    general = phase_general_shapes(card)
     emit("total", seconds=time.time() - t0)
     # the resblock's self-play shape; the select kernel's cli eval shape
     main_row = rows[0]
     leaf_row = next(r for r in rows if r["batch"] == 32768)
     rank_leaf_row = next(r for r in rows if r["batch"] == 16384)
     renju_leaf_row = next(r for r in rows if r["batch"] == 4096)
+    general_row = next(r for r in rows if (r["batch"], r["board"],
+                                           r["channels"]) == GENERAL_ROW)
     sel_row = next(r for r in sel_rows if r["envs"] == 1
                    and r["case"] == "tree" and r["forced_k"] == 0.0)
     print(json.dumps({"kernels": [{
@@ -2092,7 +2320,7 @@ def main() -> int:
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
         "launches": (rb_launches + renju_launches + lowsim_launches
                      + train_launches + run["launches"] + two_rank_launches
-                     + nccl_launches),
+                     + nccl_launches + general["resblock_launches"]),
         "launches_chip_15x15": rb_launches,
         "launches_renju_19x19": renju_launches,
         "launches_lowsim_15x15": lowsim_launches,
@@ -2100,6 +2328,7 @@ def main() -> int:
         "launches_train_loop": run["launches"],
         "launches_train_two_ranks": two_rank_launches,
         "launches_train_nccl_one_rank": nccl_launches,
+        "launches_general_shapes": general["resblock_launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2114,11 +2343,18 @@ def main() -> int:
         "renju_leaf_shape": {k: renju_leaf_row[k] for k in (
             "batch", "board", "channels", "variant", "max_abs_err", "ms",
             "host_us_per_call", "plain_ms", "bound_ms", "bound_by",
+            "share_of_bound", "library_ms")},
+        "general_shape": {k: general_row[k] for k in (
+            "batch", "board", "channels", "variant", "max_abs_err", "ms",
+            "host_us_per_call", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")}}, {
         "name": "select_batch", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/select.cu",
         "replaces": "alphafive_tpu/ops/pallas_select.py:189",
-        "launches": sel_launches, "max_abs_err": sel_row["max_abs_err"],
+        "launches": sel_launches + general["select_launches"],
+        "launches_cli_eval": sel_launches,
+        "launches_general_shapes": general["select_launches"],
+        "max_abs_err": sel_row["max_abs_err"],
         "ms": sel_row["ms"], "plain_ms": sel_row["plain_ms"],
         "bound_ms": sel_row["bound_ms"], "bound_by": sel_row["bound_by"],
         "library_ms": None, "host_us_per_call": sel_row["host_us_per_call"],

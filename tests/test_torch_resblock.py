@@ -80,6 +80,9 @@ def test_reference_matches_pallas_bf16():
 
 
 def test_kernel_wrapper_rejects_unsupported():
+    """The wrapper raises on other devices and on operands of the wrong
+    type; every C and board goes to a variant (those that no fast variant
+    takes to the general one), as JAX's fused_resblock takes them."""
     x = torch.zeros(1, 5, 5, 16, device="meta")
     w = torch.zeros(9, 16, 16, device="meta")
     b = torch.zeros(16, device="meta")
@@ -89,14 +92,19 @@ def test_kernel_wrapper_rejects_unsupported():
     w = torch.zeros(9, 64, 64, dtype=torch.bfloat16)
     b = torch.zeros(64)
     rb._check(t, w, b, w, b)                    # the main-path shape passes
+    w48, b48 = w[:, :48, :48].contiguous(), b[:48].contiguous()
+    assert rb._check(t[..., :48].contiguous(), w48, b48, w48,
+                     b48) == "general"                           # C = 48
     with pytest.raises(ValueError):
-        rb._check(t[..., :48].contiguous(), w, b, w, b)     # C = 48
+        rb._check(t[..., :48].contiguous(), w, b, w, b)     # w of another C
     with pytest.raises(ValueError):
         rb._check(t, w, b.to(torch.bfloat16), w, b)          # bias dtype
-    with pytest.raises(ValueError):
-        big = torch.zeros(1, 25, 25, 128, dtype=torch.bfloat16)
-        wb = torch.zeros(9, 128, 128, dtype=torch.bfloat16)
-        rb._check(big, wb, torch.zeros(128), wb, torch.zeros(128))  # smem
+    with pytest.raises(TypeError):
+        rb._check(t.half(), w.half(), b, w.half(), b)        # fp16
+    big = torch.zeros(1, 25, 25, 128, dtype=torch.bfloat16)
+    wb = torch.zeros(9, 128, 128, dtype=torch.bfloat16)
+    assert rb._check(big, wb, torch.zeros(128), wb,
+                     torch.zeros(128)) == "general"    # beyond streaming
 
 
 @pytest.mark.parametrize("dtype,size,c,want", [
@@ -134,10 +142,14 @@ def test_variant_budgets():
     assert rb._smem_bytes("streaming", 19, 19, 128, True) == (
         3 * 128 * 128 * 2 + 16 * 433 * 16)
     assert rb._smem_bytes("f32_plain", 19, 19, 128, False) == 19 * 19 * 128 * 4
-    with pytest.raises(ValueError, match="232448"):
-        rb.variant(torch.bfloat16, 25, 25, 128)       # 374,816 B
-    with pytest.raises(ValueError, match="232448"):
-        rb.variant(torch.float32, 25, 25, 128)        # 320,000 B
+    # past 384 positions (streaming) or 232,448 B (f32_plain) the fast
+    # variants give way to the general one
+    assert 25 * 26 > 384
+    assert rb.variant(torch.bfloat16, 25, 25, 128) == "general"
+    assert rb._smem_bytes("f32_plain", 25, 25, 128, False) == 320_000
+    assert rb.variant(torch.float32, 25, 25, 128) == "general"
+    with pytest.raises(ValueError, match="at least 1"):
+        rb.variant(torch.float32, 5, 5, 0)
 
 
 def test_variant_codes_match_source():
@@ -150,10 +162,10 @@ def test_variant_codes_match_source():
     enum = re.search(r"enum Variant \{(.*?)\};", src, re.S).group(1)
     codes = {int(v): k for k, v in re.findall(r"k(\w+) = (-?\d+)", enum)}
     names = {-1: "Refused", 0: "Streaming", 1: "Resident", 2: "Tiled",
-             3: "F32Plain"}
+             3: "F32Plain", 4: "General"}
     assert codes == names
     assert rb.VARIANTS == {0: "streaming", 1: "resident", 2: "tiled",
-                           3: "f32_plain"}
+                           3: "f32_plain", 4: "general"}
     assert set(rb.variant_launches) == set(rb.VARIANTS.values())
 
 
