@@ -3,22 +3,26 @@
     python -m alphafive_tpu_torch.benchmarks.resblock_profile [--ablate NAME]
 
 Builds an instrumented copy of ``csrc/resblock.cu`` into
-``build/kernels/profile/`` and runs the persistent kernels at their
-chip_smoke shapes on the card: resident (bf16, 2,048 × 15×15 and 9×9 ×
-64) and streaming (bf16, 2,048 × 19×19 × 96 and 128). In the copy, every
-line ``// stamp: K`` of the source becomes a ``clock64()`` stamp K of
-thread 0 of block 0, kept for its first 16 samples. One JSON line per
-shape gives the kernel's time (CUDA events), the cycles per sample and
-the mean cycles between consecutive stamps over block 0's samples 1-7:
-for the resident kernel stamps 0-4 (conv 1 with the previous output's
-copy-out, conv 1's epilogue, conv 2 with the next x's loads, conv 2's
-epilogue); for the streaming kernel stamps 0-17 (one per tap, after its
-barrier) and 18-21 (conv 2 drained, x reloaded, output epilogue,
-copy-out).
+``build/kernels/profile/`` and runs the persistent bf16 kernels at their
+chip_smoke shapes on the card: resident (2,048 × 15×15 and 9×9 × 64),
+streaming (2,048 × 19×19 × 96 and 128) and general (2,048 × 15×15 × 256
+and 2,048 × 21×21 × 64). In the copy, every line ``// stamp: K`` of the
+source becomes a ``clock64()`` stamp K of thread 0 of block 0, kept for
+its first 16 samples (K may be an expression). One JSON line per shape
+gives the kernel's time (CUDA events), the cycles per sample and the mean
+cycles between consecutive stamps over block 0's samples 1-7: for the
+resident kernel stamps 0-4 (conv 1 with the previous output's copy-out,
+conv 1's epilogue, conv 2 with the next x's loads, conv 2's epilogue);
+for the streaming kernel stamps 0-17 (one per tap, after its barrier) and
+18-21 (conv 2 drained, x reloaded, output epilogue, copy-out); for the
+general kernel stamps 0-4 (conv 1's K loops with every epilogue but the
+last tile's, that epilogue, the same two for conv 2).
 
 ``--ablate NAME`` (repeatable) also deletes the line after each
-``// ablate: NAME`` (the streaming kernel's per-tap ``barrier`` and tap
-``loads``): the results are then wrong, and only the timing is read.
+``// ablate: NAME``: the streaming kernel's per-tap ``barrier`` and tap
+``loads``; the general kernel's ``mma`` (the tensor-core products),
+``copies`` (the ring's cp.async) and ``epilogue``. The results are then
+wrong, and only the timing is read.
 """
 
 from __future__ import annotations
@@ -38,7 +42,9 @@ from alphafive_tpu_torch.ops import _build
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "resblock.cu")
-SHAPES = [(2048, 15, 64), (2048, 9, 64), (2048, 19, 96), (2048, 19, 128)]
+SHAPES = [(2048, 15, 64), (2048, 9, 64), (2048, 19, 96), (2048, 19, 128),
+          (2048, 15, 256), (2048, 21, 64)]
+ABLATIONS = ("barrier", "loads", "mma", "copies", "epilogue")
 SAMPLES, STAMPS = 16, 32
 PRELUDE = f"""
 __device__ long long resblock_stamps[{SAMPLES}][{STAMPS}];
@@ -53,19 +59,24 @@ FETCH = """
 extern "C" int resblock_stamps_fetch(void* dst) {
   return cudaMemcpyFromSymbol(dst, resblock_stamps, sizeof(resblock_stamps));
 }
+extern "C" int resblock_stamps_clear() {
+  void* p = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&p, resblock_stamps);
+  return err ? err : cudaMemset(p, 0, sizeof(resblock_stamps));
+}
 """
 
 
 def instrument(src: str, ablate) -> str:
     lines, out, drop = src.splitlines(), [], False
     for line in lines:
-        m = re.match(r"(\s*)// stamp: (\w+)$", line)
+        m = re.match(r"(\s*)// stamp: (.+)$", line)
         a = re.match(r"\s*// ablate: (\w+)$", line)
         if drop:
             drop = False
             continue
         if m:
-            out.append(f"{m.group(1)}RESBLOCK_STAMP({m.group(2)});")
+            out.append(f"{m.group(1)}RESBLOCK_STAMP(({m.group(2)}));")
         elif a:
             drop = a.group(1) in ablate
         else:
@@ -93,6 +104,7 @@ def build(ablate) -> ctypes.CDLL:
     lib.alphafive_resblock.argtypes = [i32] + [ptr] * 7 + [i32] * 4 + [ptr]
     lib.resblock_stamps_fetch.restype = i32
     lib.resblock_stamps_fetch.argtypes = [ptr]
+    lib.resblock_stamps_clear.restype = i32
     return lib
 
 
@@ -113,6 +125,9 @@ def profile(lib, b: int, s: int, c: int, seed: int = 0) -> dict:
         if err:
             raise RuntimeError(f"resblock launch failed: CUDA error {err}")
 
+    # the kernels write different stamps: none of the last shape's stay
+    if lib.resblock_stamps_clear():
+        raise RuntimeError("could not clear the stamps")
     for _ in range(3):
         call()
     start = torch.cuda.Event(enable_timing=True)
@@ -142,7 +157,7 @@ def profile(lib, b: int, s: int, c: int, seed: int = 0) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--ablate", action="append", default=[],
-                   choices=("barrier", "loads"))
+                   choices=ABLATIONS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("resblock_profile: CUDA is not available")

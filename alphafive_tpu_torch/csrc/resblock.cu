@@ -19,7 +19,7 @@
 // A 3x3 'same' conv is nine shifted [HW, C] x [C, C] products, and what
 // feeds them is shared memory.
 //
-// Five kernels; the host picks one per shape with resblock_variant()
+// Four kernels; the host picks one per shape with resblock_variant()
 // (ops/resblock.py::variant mirrors it):
 //
 //   resident (bf16, C = 64, boards up to 15x15): the self-play path.
@@ -76,25 +76,57 @@
 //     accumulators, 16 shared loads of 16 B per 256 FMAs); the weight taps
 //     stream through a cp.async double buffer, tap t+1 landing while tap t
 //     multiplies.
-//   f32 plain (f32, C = 64, 96 or 128 where y of one sample fits in shared
-//     memory): plain FMA, one sample per block, x read from device memory,
-//     y in shared memory.
-//   general (bf16 or f32, every shape the four above refuse: any C >= 1, any
-//     board): the Pallas kernel tiles only the batch, so it takes any C and
-//     board; this variant does too. Persistent CTAs, one sample at a time;
-//     each conv is an implicit GEMM of the sample's h*w pixels (M) by the C
-//     output channels (N) over the 9 taps x C input channels (K), in 64 x 64
-//     output tiles, K in steps of 16 of one tap, staged as f32 through a
-//     double buffer in shared memory; each thread owns 4 pixels x 4
-//     channels. SIMT FMA with f32 accumulators, scalar loads with bounds
-//     checks, so no width or alignment is assumed. y sits in shared memory
-//     where it fits, else in this CTA's slice of a device workspace (grid x
-//     h*w*C elements) that the caller allocates. C is a runtime argument.
-//     Simple and slow: no tensor cores.
+//   general (bf16 or f32, every shape the three above refuse: any C >= 1,
+//     any board): the Pallas kernel tiles only the batch, so it takes any
+//     C and board; this variant does too, with C a runtime argument.
+//     * Persistent CTAs of 8 warps (4 along the pixels x 2 along C), one
+//       sample at a time. Each conv is an implicit GEMM: M = the sample's
+//       h*w pixels, N = the C output channels, K = C input channels x 9
+//       taps, in output tiles of BM x 64 and K steps of BK channels of one
+//       tap, one block barrier a step. y stays on chip where it fits
+//       (15x15 x 256 bf16: 120 KB), else in this CTA's slice of a device
+//       workspace (grid x h*w*C elements) that the caller allocates.
+//     * bf16: mma.sync m16n8k16 on the tensor cores (wgmma needs
+//       descriptors and warpgroup fences this shape-agnostic variant does
+//       without), f32 accumulators; BM = 256, BK = 64 (4 k16 MMAs a
+//       barrier); each warp owns 64 pixels x 32 channels (4 x 4
+//       fragments). A by ldmatrix.x4, B (a [Cin][Cout] tap tile) by
+//       ldmatrix.x4.trans, the next k16's fragments loaded under this
+//       one's MMAs. f32: TF32 would round the inputs, so register-blocked
+//       SIMT, BM = 128, BK = 32, 4 pixels x 8 channels a lane.
+//     * Operands stay T in shared memory, every row 1 mod 8 16 B chunks
+//       long, so 8 consecutive rows of one ldmatrix hit 8 bank groups.
+//       Weights stream through a 3-stage cp.async ring (f32: 2). A does
+//       not go through the ring tap by tap: conv 1's x (or y in the
+//       workspace) is copied once per channel block into a slab of every
+//       pixel row the tile's 9 taps reach (BM + 2w + 2), which the taps
+//       read in place at shifted rows; the next slab lands in parts during
+//       the first steps of this one. Conv 2 reads y in shared memory in
+//       place, and its residual tile lands in the free slab space. A lane
+//       whose tap is off the board reads 16 B of zero rows, in the bank
+//       group of the row it replaces. 16 B copies are cp.async,
+//       zero-filled (src-size 0) past C; C not a multiple of 16 B stages
+//       element by element. No division in the K loop.
+//     * Epilogue from the accumulator fragments: bias, conv 2's residual,
+//       relu, rounding to T; y to shared memory or the workspace, the
+//       output to device memory. Warps whose tile lies wholly past the
+//       sample or past C only copy.
+//     * What bounds it: at 2,048 x 15x15 x 256 bf16 the block is 1.087
+//       TFLOP (1.099 ms at 989 TFLOP/s) against 0.47 GB of x and out (0.14
+//       ms): the tensor cores, if fed. Fed from L2, a 128 x 128-tile
+//       design that stages shifted x tap by tap reads 6.8 MB a sample (14
+//       GB a launch, ~5 TB/s at 3 ms); with whole-sample tiles (weights
+//       once a conv, 2 x 1.18 MB) and slabs (x once per 64-channel tile,
+//       4 x 115 KB) it is 2.8 MB. What is left bounds it on chip: one
+//       barrier, 24 ldmatrix.x4 (12 KB of shared memory a warp) and 64
+//       mma.sync per warp per K step (benchmarks/resblock_profile.py
+//       --ablate barrier / mma / copies / epilogue).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -106,7 +138,6 @@ enum Variant {
   kStreaming = 0,
   kResident = 1,
   kTiled = 2,
-  kF32Plain = 3,
   kGeneral = 4
 };
 
@@ -125,6 +156,21 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// 16 B, or 16 zero bytes (nothing is read) when !full.
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are
+// pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Waits for every cp.async of this thread, committed or not.
@@ -239,6 +285,25 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr)
       : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d[0..3] += A[16 x 16] B[16 x 8]: mma.sync m16n8k16, bf16 operands in the
+// fragments ldmatrix gives (A row-major, B column-major), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr,
@@ -942,94 +1007,117 @@ __global__ void __launch_bounds__(kThreadsS, 1)
 }  // namespace streaming
 
 // ---------------------------------------------------------------------------
-// f32 plain: every f32 shape the tiled kernel does not take
-
-namespace f32_plain {
-
-// Source pixel of output pixel p under tap (dy, dx), or -1 when p is past
-// the sample or the shifted pixel lies off the board.
-__device__ __forceinline__ int shifted_pixel(int p, int dy, int dx, int h,
-                                             int w) {
-  if (p >= h * w) return -1;
-  int r = p / w + dy;
-  int c = p - (p / w) * w + dx;
-  if (r < 0 || r >= h || c < 0 || c >= w) return -1;
-  return r * w + c;
-}
-
-// f32: thread item = (8 consecutive pixels, one output channel).
-constexpr int kPix = 8;
-
-template <int C, bool kSecond>
-__device__ void conv_f32(const float* src, const float* __restrict__ wg,
-                         const float* __restrict__ bias, float* dst_smem,
-                         const float* __restrict__ res,
-                         float* __restrict__ dst_global, int h, int w) {
-  const int hw = h * w;
-  const int groups = (hw + kPix - 1) / kPix;
-  for (int item = threadIdx.x; item < groups * C; item += kThreads) {
-    const int g = item / C;
-    const int n = item - g * C;
-    float acc[kPix];
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) acc[j] = 0.f;
-    for (int t = 0; t < 9; ++t) {
-      const int dy = t / 3 - 1;
-      const int dx = t % 3 - 1;
-      int q[kPix];
-#pragma unroll
-      for (int j = 0; j < kPix; ++j)
-        q[j] = shifted_pixel(g * kPix + j, dy, dx, h, w);
-      const float* wt = wg + (size_t)t * C * C + n;
-      for (int k = 0; k < C; ++k) {
-        const float wv = wt[k * C];
-#pragma unroll
-        for (int j = 0; j < kPix; ++j)
-          if (q[j] >= 0) acc[j] = fmaf(src[q[j] * C + k], wv, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      const int p = g * kPix + j;
-      if (p >= hw) continue;
-      float v = acc[j] + bias[n];
-      if (kSecond) {
-        v += res[p * C + n];
-        dst_global[p * C + n] = fmaxf(v, 0.f);
-      } else {
-        dst_smem[p * C + n] = fmaxf(v, 0.f);
-      }
-    }
-  }
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-    f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, float* __restrict__ out, int h,
-               int w) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ys = reinterpret_cast<float*>(smem_raw);
-  const size_t base = (size_t)blockIdx.x * h * w * C;
-  conv_f32<C, false>(x + base, w1, b1, ys, nullptr, nullptr, h, w);
-  __syncthreads();
-  conv_f32<C, true>(ys, w2, b2, nullptr, x + base, out + base, h, w);
-}
-
-}  // namespace f32_plain
-
-// ---------------------------------------------------------------------------
-// general: bf16 or f32, any C >= 1 and any board, SIMT implicit GEMM
+// general: bf16 or f32, any C >= 1 and any board, implicit GEMM per sample
 
 namespace general {
 
-constexpr int BM = 64;        // pixels per output tile
-constexpr int BN = 64;        // output channels per output tile
-constexpr int BK = 16;        // input channels of one tap per K step
-constexpr int kRowA = BM + 4;  // floats per staged A row (2-way conflicts)
-constexpr int kStageFloats = BK * kRowA + BK * BN;
-constexpr int kStageBytes = 2 * kStageFloats * 4;  // 16,896: double buffer
+constexpr int kWarpN = 32;  // output channels of one warp's output tile
+constexpr int kWarpsN = 2;  // 8 warps: 4 along the pixels, 2 along C
+constexpr int kWarpsM = kThreads / 32 / kWarpsN;
+constexpr int BN = kWarpN * kWarpsN;  // 64 channels
+
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+// Pixels of one warp's output tile: 64 (bf16: 4 m16 fragments) or 32
+// (f32: 4 pixels x 8 channels a lane, so a small sample still spreads
+// over several warps); of a tile, 256 or 128.
+__host__ __device__ constexpr int warp_m(int elem) {
+  return elem == 2 ? 64 : 32;
+}
+__host__ __device__ constexpr int bm(int elem) {
+  return warp_m(elem) * kWarpsM;
+}
+// Elements in 16 B: the unit of every copy and of the rows' padding.
+__host__ __device__ constexpr int chunk(int elem) { return 16 / elem; }
+// Input channels of one K step (of one tap): four k16 MMAs (bf16), or 32
+// channels of SIMT FMAs (f32).
+__host__ __device__ constexpr int bk(int elem) { return elem == 2 ? 64 : 32; }
+// K steps of weights in flight: a 3-stage ring for bf16, 2 for f32.
+__host__ __device__ constexpr int stages(int elem) {
+  return elem == 2 ? 3 : 2;
+}
+// The weight ring: a stage is one B tile of BK x BN, rows padded by 16 B.
+__host__ __device__ constexpr int ring_bytes(int elem) {
+  return stages(elem) * bk(elem) * (BN + chunk(elem)) * elem;
+}
+// A lane whose tap lies off the board reads zeros from kZeroRows rows
+// after the data: 16 B at the bank group its own row would have used, so
+// the 8 rows of one ldmatrix stay in 8 bank groups (see conv).
+constexpr int kZeroRows = 3;
+// An A slab: BK channels (rows padded by 16 B) of the pixel rows one M
+// tile's taps reach, then the zero rows. span 3: the rows of all three tap
+// rows (BM + 2w + 2, at most h*w), one slab for the 9 taps of a channel
+// block; span 1, for boards too wide for that: one tap row's BM + 2 rows,
+// a slab for each 3 taps.
+__host__ __device__ constexpr int slab_rows(int h, int w, int span,
+                                            int elem) {
+  return imin(bm(elem) + (span == 3 ? 2 * w + 2 : 2), h * w) + kZeroRows;
+}
+__host__ __device__ constexpr int slab_bytes(int h, int w, int span,
+                                             int elem) {
+  return slab_rows(h, w, span, elem) * (bk(elem) + chunk(elem)) * elem;
+}
+// Slabs: two (one read, the next landing), or one where a tile reads a
+// single slab (span 3 and C <= BK) and conv 2's residual tile fits in it.
+__host__ __device__ constexpr int slab_slots(int c, int span, int elem) {
+  return span == 3 && c <= bk(elem) && BN <= bk(elem) ? 1 : 2;
+}
+// The ring and the slabs.
+__host__ __device__ constexpr int base_bytes(int h, int w, int c, int span,
+                                             int elem) {
+  return ring_bytes(elem) +
+         slab_slots(c, span, elem) * slab_bytes(h, w, span, elem);
+}
+__host__ __device__ constexpr int span(int h, int w, int c, int elem) {
+  return base_bytes(h, w, c, 3, elem) <= kSmemLimit ? 3 : 1;
+}
+// y's row: C rounded up to 8 chunks, plus one chunk. A row of 1 mod 8
+// 16 B chunks puts 8 consecutive rows of one ldmatrix (or of one float4
+// load across a warp) in 8 different bank groups, row r in group r mod 8
+// (plus the column's); so do the slabs' rows (BK + one chunk) and the
+// ring's (BN + one chunk).
+__host__ __device__ constexpr int y_stride(int c, int elem) {
+  return (c + 8 * chunk(elem) - 1) / (8 * chunk(elem)) * (8 * chunk(elem)) +
+         chunk(elem);
+}
+// y of one sample, and the zero rows after it.
+__host__ __device__ constexpr long long y_bytes(int h, int w, int c,
+                                                int elem) {
+  return ((long long)h * w + kZeroRows) * y_stride(c, elem) * elem;
+}
+
+// y of one sample in shared memory beside the ring and slabs, or not
+__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem) {
+  return base_bytes(h, w, c, span(h, w, c, elem), elem) +
+             y_bytes(h, w, c, elem) <=
+         kSmemLimit;
+}
+
+__host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem) {
+  return base_bytes(h, w, c, span(h, w, c, elem), elem) +
+         (y_in_smem(h, w, c, elem) ? (int)y_bytes(h, w, c, elem) : 0);
+}
+
+// The tiles of element type T.
+template <typename T>
+struct Tile {
+  static constexpr int kElem = sizeof(T), kChunk = 16 / kElem;
+  static constexpr int kBK = bk(kElem), kStages = stages(kElem);
+  static constexpr int kWarpM = warp_m(kElem), kBM = bm(kElem);
+  static constexpr int kAStride = kBK + kChunk, kBStride = BN + kChunk;
+  static constexpr int kRStride = BN + kChunk;  // conv 2's residual tile
+  static constexpr int kBElems = kBK * kBStride;  // one ring stage
+  static constexpr int kACols = kBK / kChunk;  // 16 B chunks of a slab row
+  static constexpr int kBCols = BN / kChunk;
+  static constexpr int kBChunks = kBK * kBCols / kThreads;  // per thread
+  // A rows one lane reads: 4 m16 fragments (bf16) or 4 pixels (f32)
+  static constexpr int kRows = 4;
+  static constexpr int kAcc = kElem == 2 ? 64 : 32;  // accumulators
+  static_assert(kStages * kBElems * kElem == ring_bytes(kElem), "ring");
+};
+
+template <typename T>
+using Bits = typename std::conditional<sizeof(T) == 2, uint16_t,
+                                       uint32_t>::type;
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
@@ -1046,137 +1134,430 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-__host__ __device__ constexpr long long y_bytes(int h, int w, int c,
-                                                int elem) {
-  return ((long long)h * w * c * elem + 15) / 16 * 16;
+// The 16 B chunk at dst from src: its first n_ok elements (those before
+// C) where `in`, zeros elsewhere (off the board, past C). vec: C is a
+// multiple of 16 B, so the chunk is whole or empty and goes by cp.async
+// (zero-filled: `base`, a valid address, is read instead, 0 bytes of it);
+// else element by element.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(T* dst, const T* src,
+                                            const T* base, bool in, int n_ok,
+                                            bool vec) {
+  constexpr int kChunk = 16 / sizeof(T);
+  if (vec) {
+    const bool full = in && n_ok > 0;
+    // ablate: copies
+    cp_async16_zfill(smem_u32(dst), full ? src : base, full);
+    return;
+  }
+  union {
+    uint4 v;
+    Bits<T> e[kChunk];
+  } u;
+#pragma unroll
+  for (int e = 0; e < kChunk; ++e)
+    u.e[e] = in && e < n_ok ? reinterpret_cast<const Bits<T>*>(src)[e] : 0;
+  *reinterpret_cast<uint4*>(dst) = u.v;
 }
 
-// y of one sample in shared memory beside the staging buffers, or not
-__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem) {
-  return kStageBytes + y_bytes(h, w, c, elem) <= kSmemLimit;
-}
+// Where conv 2 finds the residual: element (p, ch) of a [pixel][channel]
+// array at at[(p - p0) * ld + ch - c0] (x: p0 = c0 = 0; its tile in shared
+// memory: the tile's origin).
+template <typename T>
+struct View {
+  T* at;
+  int ld, p0, c0;
+  __device__ T* operator()(int p, int ch) const {
+    return at + (size_t)(p - p0) * ld + ch - c0;
+  }
+};
 
-__host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem) {
-  return kStageBytes +
-         (y_in_smem(h, w, c, elem) ? (int)y_bytes(h, w, c, elem) : 0);
-}
-
-// One 3x3 'same' conv of one sample, src [h*w][c] -> dst [h*w][c]:
-// dst = T(relu(conv(src) + bias (+ res))). `src` may be shared or device
-// memory written earlier in this launch, so it is read by plain loads. K
-// step s is tap s / kc, input channels (s % kc) * BK + [0, BK). Loader
-// roles: A element (pixel tid / 16 + 16 j, channel tid % 16), B element
-// (input channel tid / 64 + 4 j, output channel tid % 64), j < 4.
-template <typename T, bool kResidual>
-__device__ void conv(const T* src, const T* __restrict__ wt,
-                     const float* __restrict__ bias,
-                     const T* __restrict__ res, T* dst, int h, int w, int c,
-                     float* stage) {
-  const int tid = threadIdx.x, hw = h * w;
-  const int tm = tid >> 4, tn = tid & 15;  // compute: 4 pixels x 4 channels
-  const int kc = (c + BK - 1) / BK, steps = 9 * kc;
-  for (int m0 = 0; m0 < hw; m0 += BM) {
-    int pr[4], pc[4];  // this thread's A pixels (row, column), pr < 0: none
+// The epilogue of one warp's output tile (pixels p0 + [0, kWarpM),
+// channels ch0 + [0, 32)) from its accumulators:
+//   dst[p][ch] = T(relu(acc + bias[ch] (+ res[p][ch])))
+// in runs of 2 (bf16: an accumulator fragment's pair) or 4 (f32) channels.
+// The residual (conv 2) is x in device memory, or its tile in shared
+// memory. The bias is read once, and every residual load is issued
+// before the first is used.
+template <typename T, bool kSecond>
+__device__ __forceinline__ void epilogue(const float (&acc)[Tile<T>::kAcc],
+                                         T* dst, int ld,
+                                         const float* __restrict__ bias,
+                                         View<const T> res, int p0, int ch0,
+                                         int hw, int c) {
+  constexpr bool kMma = sizeof(T) == 2;
+  constexpr int kRun = kMma ? 2 : 4;   // channels of a run
+  constexpr int kRuns = kMma ? 4 : 2;  // runs of the lane at a pixel
+  constexpr int kPix = kMma ? 8 : 4;   // pixels of the lane
+  const int lane = threadIdx.x & 31;
+  // bf16 fragment (i, j): pixels 16 i + g (+ 8), channels 8 j + 2 t (+ 1);
+  // f32: pixels tr + 8 i, channels 4 tc + 16 hf + [0, 4)
+  auto pix = [&](int k) {
+    return p0 + (kMma ? 16 * (k >> 1) + (lane >> 2) + 8 * (k & 1)
+                      : (lane >> 2) + 8 * k);
+  };
+  auto chan = [&](int r) {
+    return ch0 + (kMma ? 8 * r + 2 * (lane & 3) : 16 * r + 4 * (lane & 3));
+  };
+  auto acc_at = [&](int k, int r, int e) {
+    return kMma ? acc[((k >> 1) * 4 + r) * 4 + 2 * (k & 1) + e]
+                : acc[k * 8 + 4 * r + e];
+  };
+  float bv[kRuns][kRun];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int p = m0 + (tid >> 4) + 16 * j;
-      pr[j] = p < hw ? p / w : -h - 2;
-      pc[j] = p < hw ? p - (p / w) * w : 0;
-    }
-    for (int n0 = 0; n0 < c; n0 += BN) {
-      float acc[4][4];
+  for (int r = 0; r < kRuns; ++r)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int e = 0; e < kRun; ++e)
+      bv[r][e] = chan(r) + e < c ? __ldg(bias + chan(r) + e) : 0.f;
+  const bool vec_res = res.ld % kRun == 0 && res.c0 % kRun == 0;
+  const bool vec_dst = ld % kRun == 0;
+  float rv[kPix][kRuns][kRun];
+  if constexpr (kSecond) {
 #pragma unroll
-        for (int n = 0; n < 4; ++n) acc[i][n] = 0.f;
-      float ra[4], rb[4];
-      auto load = [&](int s) {
-        const int t = s / kc, k0 = (s - t * kc) * BK;
-        const int dy = t / 3 - 1, dx = t % 3 - 1;
-        const int ci = k0 + (tid & 15);
+    for (int k = 0; k < kPix; ++k)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = pr[j] + dy, q = pc[j] + dx;
-          const bool ok = ci < c && r >= 0 && r < h && q >= 0 && q < w;
-          ra[j] = ok ? widen(src[((size_t)r * w + q) * c + ci]) : 0.f;
+      for (int r = 0; r < kRuns; ++r) {
+        const int p = pix(k), ch = chan(r);
+        const T* src = res(p, ch);
+        const bool in = p < hw && ch < c;
+        if (in && vec_res && ch + kRun <= c) {
+          if constexpr (kMma) {
+            const float2 v = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(src));
+            rv[k][r][0] = v.x;
+            rv[k][r][1] = v.y;
+          } else {
+            const float4 v = *reinterpret_cast<const float4*>(src);
+            rv[k][r][0] = v.x;
+            rv[k][r][1] = v.y;
+            rv[k][r][2] = v.z;
+            rv[k][r][3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < kRun; ++e)
+            rv[k][r][e] = in && ch + e < c ? widen(src[e]) : 0.f;
         }
-        const int n = n0 + (tid & 63);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int k = k0 + (tid >> 6) + 4 * j;
-          rb[j] = k < c && n < c ? widen(wt[((size_t)t * c + k) * c + n])
-                                 : 0.f;
-        }
-      };
-      auto store = [&](int buf) {
-        float* as = stage + buf * kStageFloats;
-        float* bs = as + BK * kRowA;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          as[(tid & 15) * kRowA + (tid >> 4) + 16 * j] = ra[j];
-          bs[((tid >> 6) + 4 * j) * BN + (tid & 63)] = rb[j];
-        }
-      };
-      load(0);
-      store(0);
-      __syncthreads();
-      for (int s = 0; s < steps; ++s) {
-        if (s + 1 < steps) load(s + 1);  // in flight under this step's FMAs
-        const float* as = stage + (s & 1) * kStageFloats;
-        const float* bs = as + BK * kRowA;
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 a =
-              *reinterpret_cast<const float4*>(as + kk * kRowA + 4 * tm);
-          const float4 b =
-              *reinterpret_cast<const float4*>(bs + kk * BN + 4 * tn);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              acc[i][n] = fmaf(av[i], bv[n], acc[i][n]);
-        }
-        // the other buffer was last read in step s - 1, before the barrier
-        if (s + 1 < steps) store((s + 1) & 1);
-        __syncthreads();
       }
+  }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = m0 + 4 * tm + i;
-        if (p >= hw) continue;
+  for (int k = 0; k < kPix; ++k) {
+    const int p = pix(k);
+    if (p >= hw) continue;
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const int ch = n0 + 4 * tn + n;
-          if (ch >= c) continue;
-          float v = acc[i][n] + __ldg(bias + ch);
-          if (kResidual) v += widen(res[(size_t)p * c + ch]);
-          dst[(size_t)p * c + ch] = narrow<T>(fmaxf(v, 0.f));
-        }
+    for (int r = 0; r < kRuns; ++r) {
+      const int ch = chan(r);
+      if (ch >= c) continue;
+      float v[kRun];
+#pragma unroll
+      for (int e = 0; e < kRun; ++e)
+        v[e] = fmaxf(acc_at(k, r, e) + bv[r][e] + (kSecond ? rv[k][r][e] : 0.f),
+                     0.f);
+      T* o = dst + (size_t)p * ld + ch;
+      if (vec_dst && ch + kRun <= c) {
+        if constexpr (kMma)
+          *reinterpret_cast<__nv_bfloat162*>(o) =
+              __floats2bfloat162_rn(v[0], v[1]);
+        else
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kRun; ++e)
+          if (ch + e < c) o[e] = narrow<T>(v[e]);
       }
     }
   }
 }
 
+// One 3x3 'same' conv of one sample into dst (row stride ld):
+//   dst = T(relu(conv(A; wt) + bias (+ the residual x)))
+// with A the sample's activations [h*w][c], read in place by the products:
+// from y in shared memory (kDirect: conv 2 where y fits; stride y_stride,
+// zero rows after it), or from slabs copied out of device memory (src: x,
+// or y in the workspace). Output tiles of BM pixels x BN channels, pixels
+// outer; each runs ceil(C / BK) channel blocks x 9 taps, one K step each,
+// one block barrier a step. The weights of step s + stages - 1 are copied
+// at step s; the next slab in parts over the first steps of a slab's turn
+// (cp.async groups complete in order, so each part has stages - 1 steps
+// to land). kDirect leaves the slabs free: conv 2's residual tile lands
+// there during the K loop. b: the sample (read by
+// benchmarks/resblock_profile.py's stamps).
+template <typename T, bool kSecond, bool kDirect>
+__device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
+                     const float* __restrict__ bias, const T* x, T* dst,
+                     int ld, int h, int w, int c, int span, T* ring, T* slabs,
+                     int b) {
+  using G = Tile<T>;
+  constexpr bool kMma = sizeof(T) == 2;
+  constexpr int BK = G::kBK;
+  static_assert(2 * G::kAStride >= G::kRStride, "the residual tile fits");
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  // warp (wm, wn) = (wid / 2, wid % 2): a tile's lower pixel rows, the
+  // last to go idle past the sample, spread over the 4 SM sub-partitions
+  const int wm0 = wid / kWarpsN * G::kWarpM, wn0 = wid % kWarpsN * kWarpN;
+  const int hw = h * w, kcb = (c + BK - 1) / BK, steps = 9 * kcb;
+  const bool vec = c % G::kChunk == 0;  // 16 B copies (cp.async)
+  const int a_ld = kDirect ? y_stride(c, G::kElem) : G::kAStride;
+  const int srows = slab_rows(h, w, span, G::kElem);
+  const int zrow = kDirect ? hw : srows - kZeroRows;  // the first zero row
+  // steps over which the next slab is copied: each part lands within
+  // stages - 1 steps, before the slab's turn
+  const int parts = 3 * span - (G::kStages - 1);
+  const size_t cc = (size_t)c * c;
+  // loader roles: slab chunk column acol of rows arow0 + j * kARowStep;
+  // weight (and residual) chunk column bcol of rows brow0 + j * kBRowStep
+  constexpr int kARowStep = kThreads / G::kACols;
+  constexpr int kBRowStep = kThreads / G::kBCols;
+  const int acol = tid % G::kACols * G::kChunk, arow0 = tid / G::kACols;
+  const int bcol = tid % G::kBCols * G::kChunk, brow0 = tid / G::kBCols;
+
+  for (int m0 = 0; m0 < hw; m0 += G::kBM) {
+    // the lane's A rows: pixel p's offset in A's buffer, which of the 9
+    // taps lie on the board (bit t; none past the sample), and where in
+    // the zero rows it reads off the board: chunk (p - zrow) mod 8, plus
+    // the tap's row shift mod 8 (ztap), so its 16 B fall in the bank
+    // group of the row it replaces
+    int abase[G::kRows], on[G::kRows], zbase[G::kRows];
+#pragma unroll
+    for (int i = 0; i < G::kRows; ++i) {
+      const int p = m0 + wm0 +
+                    (kMma ? 16 * i + (lane & 15) : 8 * i + (lane >> 2));
+      const int r = p / w, q = p - r * w;
+      abase[i] = p * a_ld;
+      zbase[i] = zrow * a_ld + ((p - zrow) & 7) * G::kChunk;
+      on[i] = 0;
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        on[i] |= (p < hw && (unsigned)(r + t / 3 - 1) < (unsigned)h &&
+                  (unsigned)(q + t % 3 - 1) < (unsigned)w)
+                 << t;
+    }
+    // first pixel row of the slab whose lowest tap row is dy0
+    auto slab_lo = [&](int dy0) { return max(0, m0 + dy0 * w - 1); };
+    // rows of channel block cb from tap row dy0, part `part` of `nparts`
+    auto load_slab = [&](int slot, int cb, int dy0, int part, int nparts) {
+      const int lo = slab_lo(dy0);
+      const int n = min(hw, m0 + G::kBM + (dy0 + span - 1) * w + 1) - lo;
+      const int ch = cb * BK + acol;
+      T* sl = slabs + slot * srows * G::kAStride + acol;
+      const T* from = src + lo * c + ch;
+      for (int row = arow0 + part * kARowStep; row < n;
+           row += nparts * kARowStep)
+        stage_chunk(sl + row * G::kAStride, from + row * c, src, true,
+                    c - ch, vec);
+    };
+    for (int n0 = 0; n0 < c; n0 += BN) {
+      // warps whose whole tile lies past the sample or past C only copy
+      const bool active = m0 + wm0 < hw && n0 + wn0 < c;
+      float acc[G::kAcc];
+#pragma unroll
+      for (int i = 0; i < G::kAcc; ++i) acc[i] = 0.f;
+      // the next weights: channel block lcb, tap lt, this thread's first
+      // chunk at wt + woff
+      int lcb = 0, lt = 0;
+      size_t woff = (size_t)brow0 * c + n0 + bcol;
+      auto load_weights = [&](int slot) {
+        T* bs = ring + slot * G::kBElems + brow0 * G::kBStride + bcol;
+#pragma unroll
+        for (int j = 0; j < G::kBChunks; ++j)
+          stage_chunk(bs + j * kBRowStep * G::kBStride,
+                      wt + woff + (size_t)j * kBRowStep * c, wt,
+                      lcb * BK + brow0 + j * kBRowStep < c, c - n0 - bcol,
+                      vec);
+        woff += cc;
+        if (++lt == 9) {
+          lt = 0;
+          ++lcb;
+          woff += (size_t)BK * c - 9 * cc;
+        }
+      };
+      // conv 2's residual tile x[m0 + row][n0 + ...], rows kRStride apart
+      auto load_residual = [&]() {
+        const int n = min(G::kBM, hw - m0);
+        for (int row = brow0; row < n; row += kBRowStep)
+          stage_chunk(slabs + row * G::kRStride + bcol,
+                      x + (size_t)(m0 + row) * c + n0 + bcol, x, true,
+                      c - n0 - bcol, vec);
+      };
+
+      __syncthreads();  // every warp is done with the last tile's smem
+      if (!kDirect && m0 == 0 && n0 == 0) {
+        // the slabs' zero rows (conv 2's residual tile may have covered
+        // them); the barrier of step 0 publishes them
+        constexpr int kZero = kZeroRows * G::kAStride;
+        for (int i = tid; i < slab_slots(c, span, G::kElem) * kZero;
+             i += kThreads)
+          slabs[(i / kZero + 1) * srows * G::kAStride - kZero + i % kZero] =
+              narrow<T>(0.f);
+      }
+#pragma unroll
+      for (int s = 0; s < G::kStages - 1; ++s) {
+        if (!kDirect && s == 0) load_slab(0, 0, -1, 0, 1);
+        load_weights(s);
+        cp_async_commit();
+      }
+      int cb = 0, t = 0, wi = 0;  // channel block, tap, slab of step s
+      int rd = 0, wr = G::kStages - 1;
+      for (int s = 0; s < steps; ++s) {
+        const int dy = t < 3 ? -1 : t < 6 ? 0 : 1, dx = t - 3 * dy - 4;
+        cp_async_wait<G::kStages - 2>();
+        // ablate: barrier
+        __syncthreads();  // step s landed; every warp is past step s - 1
+        if (s + G::kStages - 1 < steps) load_weights(wr);
+        if (!kDirect) {
+          // the next slab: channel block cb + 1 (span 3), or tap row
+          // dy + 1 of this block (span 1)
+          const int k = span == 3 ? t : t - 3 * (dy + 1);
+          const bool next_block = span == 3 || dy == 1;
+          if (k < parts && (!next_block || cb + 1 < kcb))
+            load_slab((wi + 1) & 1, next_block ? cb + 1 : cb,
+                      next_block ? -1 : dy + 1, k, parts);
+        } else if (s == 0) {
+          load_residual();
+        }
+        cp_async_commit();
+        if (active) {
+          // the lane's A rows at tap (dy, dx), or zeros
+          const T* ab = kDirect ? ys : slabs + (wi & 1) * srows * G::kAStride;
+          // the tap's row shift in A's buffer
+          const int shift =
+              dy * w + dx - (kDirect ? 0 : slab_lo(span == 3 ? -1 : dy));
+          const int tap = shift * a_ld + (kDirect ? cb * BK : 0);
+          const int ztap = (shift & 7) * G::kChunk;
+          int aoff[G::kRows];
+#pragma unroll
+          for (int i = 0; i < G::kRows; ++i)
+            aoff[i] = on[i] >> t & 1 ? abase[i] + tap : zbase[i] + ztap;
+          const T* bs = ring + rd * G::kBElems;
+          if constexpr (kMma) {
+            // k16 MMAs of m16n8k16 over the step's channels (C padded to
+            // 16 only): 4 x 4 fragments of the 64 x 32 warp tile, A by
+            // ldmatrix, B by ldmatrix .trans, the next k16's fragments
+            // loaded under this one's MMAs
+            const int nk = imin(BK, c - cb * BK + 15) / 16;
+            uint32_t a[2][4][4], bf[2][4][2];
+            auto fragments = [&](int kk, int buf) {
+              const int ka = 16 * kk + (lane >> 4) * 8;
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                ldmatrix_x4(a[buf][i], smem_u32(ab + aoff[i] + ka));
+#pragma unroll
+              for (int jn = 0; jn < 2; ++jn) {
+                uint32_t r[4];
+                ldmatrix_x4_trans(
+                    r, smem_u32(bs + (16 * kk + (lane & 15)) * G::kBStride +
+                                wn0 + 16 * jn + (lane >> 4) * 8));
+                bf[buf][2 * jn][0] = r[0];
+                bf[buf][2 * jn][1] = r[1];
+                bf[buf][2 * jn + 1][0] = r[2];
+                bf[buf][2 * jn + 1][1] = r[3];
+              }
+            };
+            fragments(0, 0);
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+              if (kk >= nk) break;
+              if (kk + 1 < BK / 16 && kk + 1 < nk)
+                fragments(kk + 1, (kk + 1) & 1);
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  // ablate: mma
+                  mma_bf16(&acc[(i * 4 + j) * 4], a[kk & 1][i], bf[kk & 1][j]);
+                }
+            }
+          } else {
+            // f32 SIMT: 4 pixels x 8 channels a lane (channels
+            // wn0 + 4 tc + [0, 4) and 16 above), 4 input channels at a
+            // time: 12 shared loads of 16 B per 128 FMAs
+            const int tc = lane & 3;
+#pragma unroll
+            for (int kq = 0; kq < BK / 4; ++kq) {
+              if (cb * BK + 4 * kq >= c) break;
+              float4 a[G::kRows];
+#pragma unroll
+              for (int i = 0; i < G::kRows; ++i)
+                a[i] = *reinterpret_cast<const float4*>(ab + aoff[i] + 4 * kq);
+#pragma unroll
+              for (int kk = 0; kk < 4; ++kk) {
+                const T* brow = bs + (4 * kq + kk) * G::kBStride + wn0 + 4 * tc;
+                const float4 lo4 = *reinterpret_cast<const float4*>(brow);
+                const float4 hi4 = *reinterpret_cast<const float4*>(brow + 16);
+                const float wv[8] = {lo4.x, lo4.y, lo4.z, lo4.w,
+                                     hi4.x, hi4.y, hi4.z, hi4.w};
+#pragma unroll
+                for (int i = 0; i < G::kRows; ++i) {
+                  const float av = kk == 0   ? a[i].x
+                                   : kk == 1 ? a[i].y
+                                   : kk == 2 ? a[i].z
+                                             : a[i].w;
+#pragma unroll
+                  for (int n = 0; n < 8; ++n)
+                    acc[i * 8 + n] = fmaf(av, wv[n], acc[i * 8 + n]);
+                }
+              }
+            }
+          }
+        }
+        if (++rd == G::kStages) rd = 0;
+        if (++wr == G::kStages) wr = 0;
+        if (t == 8 || (span == 1 && (t == 2 || t == 5))) ++wi;
+        if (++t == 9) {
+          t = 0;
+          ++cb;
+        }
+      }
+      // stamp: kSecond ? 3 : 1
+      if (!active) continue;
+      const View<const T> res =
+          kDirect ? View<const T>{slabs, G::kRStride, m0, n0}
+                  : View<const T>{x, c, 0, 0};
+      // ablate: epilogue
+      epilogue<T, kSecond>(acc, dst, ld, bias, res, m0 + wm0, n0 + wn0, hw, c);
+    }
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     kernel(const T* __restrict__ x, const T* __restrict__ w1,
            const float* __restrict__ b1, const T* __restrict__ w2,
            const float* __restrict__ b2, T* __restrict__ out, T* workspace,
            int nb, int h, int w, int c) {
   extern __shared__ __align__(16) unsigned char smem_general[];
-  float* stage = reinterpret_cast<float*>(smem_general);
+  using G = Tile<T>;
+  constexpr int kElem = sizeof(T);
+  const int sp = span(h, w, c, kElem), srows = slab_rows(h, w, sp, kElem);
+  T* ring = reinterpret_cast<T*>(smem_general);
+  T* slabs = ring + G::kStages * G::kBElems;
   const size_t sample = (size_t)h * w * c;
-  T* ys = y_in_smem(h, w, c, sizeof(T))
-              ? reinterpret_cast<T*>(smem_general + kStageBytes)
-              : workspace + blockIdx.x * sample;
+  if (y_in_smem(h, w, c, kElem)) {
+    T* ys = slabs + slab_slots(c, sp, kElem) * srows * G::kAStride;
+    // the padding channels and the zero rows are read, never written; the
+    // first tile's barrier publishes the zeros
+    for (int i = threadIdx.x; i < y_bytes(h, w, c, kElem) / 16; i += kThreads)
+      reinterpret_cast<uint4*>(ys)[i] = make_uint4(0, 0, 0, 0);
+    const int ld = y_stride(c, kElem);
+    for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+      const T* xb = x + b * sample;
+      // stamp: 0
+      conv<T, false, false>(xb, nullptr, w1, b1, xb, ys, ld, h, w, c, sp,
+                            ring, slabs, b);
+      // stamp: 2
+      conv<T, true, true>(nullptr, ys, w2, b2, xb, out + b * sample, c, h, w,
+                          c, sp, ring, slabs, b);
+      // stamp: 4
+    }
+    return;
+  }
+  T* ys = workspace + blockIdx.x * sample;  // this CTA's y, stride C
   for (int b = blockIdx.x; b < nb; b += gridDim.x) {
     const T* xb = x + b * sample;
-    conv<T, false>(xb, w1, b1, nullptr, ys, h, w, c, stage);
-    __syncthreads();  // y complete before conv 2 reads it
-    conv<T, true>(ys, w2, b2, xb, out + b * sample, h, w, c, stage);
-    __syncthreads();  // y read before the next sample's conv 1 writes it
+    conv<T, false, false>(xb, nullptr, w1, b1, xb, ys, c, h, w, c, sp, ring,
+                          slabs, b);
+    conv<T, true, false>(ys, nullptr, w2, b2, xb, out + b * sample, c, h, w,
+                         c, sp, ring, slabs, b);
   }
 }
 
@@ -1195,7 +1576,6 @@ int resblock_variant(int dtype, int h, int w, int c) {
   }
   if (c == 64 && h * w <= 256 && tiled::smem_bytes(h, w) <= kSmemLimit)
     return kTiled;
-  if (fast && h * w * c * 4 <= kSmemLimit) return kF32Plain;
   return kGeneral;
 }
 
@@ -1226,31 +1606,37 @@ cudaError_t launch(K kernel, int grid, int threads, int smem,
 }
 
 template <int C>
-cudaError_t launch_per_channels(int variant, const void* x, const void* w1,
-                                const void* b1, const void* w2,
-                                const void* b2, void* out, int b, int h,
-                                int w, cudaStream_t s) {
-  if (variant == kStreaming)
-    return launch(streaming::bf16_kernel<C>, persistent_grid(b),
-                  streaming::kThreadsS, streaming::smem_bytes(w, C), s,
-                  static_cast<const __nv_bfloat16*>(x),
-                  static_cast<const __nv_bfloat16*>(w1),
-                  static_cast<const float*>(b1),
-                  static_cast<const __nv_bfloat16*>(w2),
-                  static_cast<const float*>(b2),
-                  static_cast<__nv_bfloat16*>(out), b, h, w);
-  return launch(f32_plain::f32_kernel<C>, b, kThreads, h * w * C * 4, s,
-                static_cast<const float*>(x), static_cast<const float*>(w1),
-                static_cast<const float*>(b1), static_cast<const float*>(w2),
-                static_cast<const float*>(b2), static_cast<float*>(out), h,
-                w);
+cudaError_t launch_streaming(const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, void* out, int b,
+                             int h, int w, cudaStream_t s) {
+  return launch(streaming::bf16_kernel<C>, persistent_grid(b),
+                streaming::kThreadsS, streaming::smem_bytes(w, C), s,
+                static_cast<const __nv_bfloat16*>(x),
+                static_cast<const __nv_bfloat16*>(w1),
+                static_cast<const float*>(b1),
+                static_cast<const __nv_bfloat16*>(w2),
+                static_cast<const float*>(b2),
+                static_cast<__nv_bfloat16*>(out), b, h, w);
+}
+
+template <typename T>
+cudaError_t launch_general(const void* x, const void* w1, const void* b1,
+                           const void* w2, const void* b2, void* out,
+                           void* workspace, int b, int h, int w, int c,
+                           cudaStream_t s) {
+  return launch(general::kernel<T>, persistent_grid(b), kThreads,
+                general::smem_bytes(h, w, c, sizeof(T)), s,
+                static_cast<const T*>(x), static_cast<const T*>(w1),
+                static_cast<const float*>(b1), static_cast<const T*>(w2),
+                static_cast<const float*>(b2), static_cast<T*>(out),
+                static_cast<T*>(workspace), b, h, w, c);
 }
 
 }  // namespace
 
 // Which kernel alphafive_resblock runs for this shape: 0 streaming (bf16),
-// 1 resident (bf16), 2 tiled (f32), 3 f32 plain, 4 general (either type,
-// any C >= 1 and board), -1 refused (a dtype other than 0 or 1, or a
+// 1 resident (bf16), 2 tiled (f32), 4 general (either type, any C >= 1
+// and board), -1 refused (a dtype other than 0 or 1, or a
 // dimension below 1).
 extern "C" int alphafive_resblock_variant(int dtype, int h, int w, int c) {
   return resblock_variant(dtype, h, w, c);
@@ -1299,40 +1685,22 @@ extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
                     static_cast<const float*>(w2),
                     static_cast<const float*>(b2), static_cast<float*>(out),
                     b, h, w);
-    case kGeneral: {
+    case kGeneral:
       if (workspace_bytes(dtype, b, h, w, c) > 0 && workspace == nullptr)
         return cudaErrorInvalidValue;
-      const int grid = persistent_grid(b);
-      const auto* b1f = static_cast<const float*>(b1);
-      const auto* b2f = static_cast<const float*>(b2);
-      if (dtype == 1) {
-        using T = __nv_bfloat16;
-        return launch(general::kernel<T>, grid, kThreads,
-                      general::smem_bytes(h, w, c, 2), s,
-                      static_cast<const T*>(x), static_cast<const T*>(w1), b1f,
-                      static_cast<const T*>(w2), b2f, static_cast<T*>(out),
-                      static_cast<T*>(workspace), b, h, w, c);
-      }
-      return launch(general::kernel<float>, grid, kThreads,
-                    general::smem_bytes(h, w, c, 4), s,
-                    static_cast<const float*>(x),
-                    static_cast<const float*>(w1), b1f,
-                    static_cast<const float*>(w2), b2f,
-                    static_cast<float*>(out), static_cast<float*>(workspace),
-                    b, h, w, c);
-    }
+      if (dtype == 1)
+        return launch_general<__nv_bfloat16>(x, w1, b1, w2, b2, out,
+                                             workspace, b, h, w, c, s);
+      return launch_general<float>(x, w1, b1, w2, b2, out, workspace, b, h,
+                                   w, c, s);
     case kStreaming:
-    case kF32Plain:
       switch (c) {
         case 64:
-          return launch_per_channels<64>(variant, x, w1, b1, w2, b2, out, b,
-                                         h, w, s);
+          return launch_streaming<64>(x, w1, b1, w2, b2, out, b, h, w, s);
         case 96:
-          return launch_per_channels<96>(variant, x, w1, b1, w2, b2, out, b,
-                                         h, w, s);
+          return launch_streaming<96>(x, w1, b1, w2, b2, out, b, h, w, s);
         case 128:
-          return launch_per_channels<128>(variant, x, w1, b1, w2, b2, out, b,
-                                          h, w, s);
+          return launch_streaming<128>(x, w1, b1, w2, b2, out, b, h, w, s);
       }
   }
   return cudaErrorInvalidValue;

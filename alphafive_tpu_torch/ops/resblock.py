@@ -20,14 +20,45 @@ import torch.nn.functional as F
 
 CHANNELS = (64, 96, 128)  # the widths the fast variants are built for
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
-# csrc/resblock.cu's general variant: its double-buffered f32 staging of
-# one 64-pixel x 16-channel A tile (rows padded to 68) and one 16 x 64 B
-# tile, beside y of one sample where that fits
-_GENERAL_STAGE = 2 * (16 * 68 + 16 * 64) * 4
+_SMS = 132             # the persistent kernels' grid: min(batch, SMs)
+# csrc/resblock.cu's general variant: output tiles of BM pixels (256 bf16,
+# 128 f32) x 64 channels; K steps of BK input channels of one tap (64
+# bf16, 32 f32); a ring of 3 (bf16) or 2 (f32) weight tiles of BK x 64
+# (_GENERAL_RING) and one or two A slabs of BK channels of the pixel rows
+# an M tile's taps reach, rows padded by 16 B (`_general_stage`); beside
+# them y of one sample where that fits
+
+
+def _general_dims(bf16: bool) -> tuple:
+    """(element bytes, elements in 16 B, BM, BK, ring stages)."""
+    return (2, 8, 256, 64, 3) if bf16 else (4, 4, 128, 32, 2)
+
+
+def _general_ring(bf16: bool) -> int:
+    elem, pad, _, bk, stages = _general_dims(bf16)
+    return stages * bk * (64 + pad) * elem
+
+
+_GENERAL_RING = {bf16: _general_ring(bf16) for bf16 in (True, False)}
+
+
+def _general_stage(h: int, w: int, c: int, bf16: bool) -> int:
+    """The general variant's shared memory beside y: the ring and the
+    slabs, each of the rows of all three tap rows of an M tile (BM + 2w +
+    2, at most h·w) and 3 zero rows (one slab where C <= BK and a 64-channel
+    residual row fits in a slab row, else two), or, where that does not
+    fit, two of one tap row (BM + 2)."""
+    elem, pad, bm, bk, _ = _general_dims(bf16)
+    for reach, slabs in ((2 * w + 2, 1 if c <= bk and 64 <= bk else 2),
+                         (2, 2)):
+        rows = min(bm + reach, h * w) + 3
+        stage = _GENERAL_RING[bf16] + slabs * rows * (bk + pad) * elem
+        if stage <= _SMEM_LIMIT:
+            return stage
+    raise AssertionError("one tap row's slabs always fit")
 
 # csrc/resblock.cu's variant codes (alphafive_resblock_variant)
-VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 3: "f32_plain",
-            4: "general"}
+VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 4: "general"}
 resblock_launches = 0  # kernel launches since the last reset
 # the same launches by the variant the library ran (see `variant`)
 variant_launches = dict.fromkeys(VARIANTS.values(), 0)
@@ -77,15 +108,29 @@ def fused_resblock_reference(x, w1, b1, w2, b2) -> torch.Tensor:
 # "resident" holds both convs' 18 taps (147,456 B at C = 64) beside two
 # such buffers of 2 x (48 or 120) positions; "streaming" one buffer of
 # 3 x 128 positions beside a ring of 3 taps. "tiled" (f32) double-buffers
-# one 16 KB tap beside two halo-padded buffers of 272 B rows; "f32_plain"
-# holds y of one sample; "general" its staging tiles, and y of one sample
-# where that fits (else y goes to a device workspace, `_y_in_smem`).
+# one 16 KB tap beside two halo-padded buffers of 272 B rows; "general"
+# its ring and slabs, and y of one sample where that fits (else y goes to
+# a device workspace, `_y_in_smem`): rows of C rounded up to 128 B plus
+# 16 B, and 3 zero rows.
 def _y_bytes(h: int, w: int, c: int, bf16: bool) -> int:
-    return (h * w * c * (2 if bf16 else 4) + 15) // 16 * 16
+    pad = 8 if bf16 else 4                    # elements in 16 B
+    stride = -(-c // (8 * pad)) * 8 * pad + pad
+    return (h * w + 3) * stride * (2 if bf16 else 4)
 
 
 def _y_in_smem(h: int, w: int, c: int, bf16: bool) -> bool:
-    return _GENERAL_STAGE + _y_bytes(h, w, c, bf16) <= _SMEM_LIMIT
+    need = _general_stage(h, w, c, bf16) + _y_bytes(h, w, c, bf16)
+    return need <= _SMEM_LIMIT
+
+
+def _workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool) -> int:
+    """Bytes of device workspace the general variant takes at this batch
+    and shape (csrc/resblock.cu's workspace_bytes on a card of _SMS SMs):
+    y of one sample per persistent CTA where it does not fit on chip."""
+    if (b < 1 or variant(torch.bfloat16 if bf16 else torch.float32, h, w, c)
+            != "general" or _y_in_smem(h, w, c, bf16)):
+        return 0
+    return min(b, _SMS) * h * w * c * (2 if bf16 else 4)
 
 
 def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
@@ -99,9 +144,9 @@ def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
     if variant == "streaming":
         return 3 * c * c * 2 + (c // 8) * rows(384) * 16
     if variant == "general":
-        return _GENERAL_STAGE + (_y_bytes(h, w, c, bf16)
-                                 if _y_in_smem(h, w, c, bf16) else 0)
-    return h * w * c * 4
+        return _general_stage(h, w, c, bf16) + (
+            _y_bytes(h, w, c, bf16) if _y_in_smem(h, w, c, bf16) else 0)
+    raise ValueError(f"no variant {variant!r}")
 
 
 def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
@@ -109,11 +154,11 @@ def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
     "resident" (bf16, C = 64, h·(w + 1) up to 240, e.g. 15×15: weights
     resident, wgmma), "tiled" (f32, C = 64, up to 256 pixels: register-
     blocked SIMT), "streaming" (bf16, C in CHANNELS, up to h·(w + 1) =
-    384, e.g. 19×19: taps streamed, wgmma), "f32_plain" (f32, C in
-    CHANNELS, y of one sample in shared memory: plain FMA), or "general"
-    (every other shape: any other C, e.g. 16 or 256; bf16 boards from
-    20×20 up; f32 samples whose y exceeds shared memory, e.g. 19×19×192:
-    SIMT implicit GEMM, no width or board limit)."""
+    384, e.g. 19×19: taps streamed, wgmma), or "general" (every other
+    shape: any other C, e.g. 16 or 256; bf16 boards from 20×20 up; f32
+    beyond 256 pixels or at other widths, e.g. 19×19 × 64 or 192: implicit
+    GEMM, mma.sync for bf16 and register-blocked SIMT for f32, no width or
+    board limit)."""
     if min(h, w, c) < 1:
         raise ValueError(f"{h}x{w}x{c}: every dimension must be at least 1")
     bf16 = dtype == torch.bfloat16
@@ -122,7 +167,7 @@ def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
         kinds = [("resident", c == 64 and cells <= 240),
                  ("streaming", fast and cells <= 384)]
     else:
-        kinds = [("tiled", c == 64 and h * w <= 256), ("f32_plain", fast)]
+        kinds = [("tiled", c == 64 and h * w <= 256)]
     for v, shape_ok in kinds:
         if shape_ok and _smem_bytes(v, h, w, c, bf16) <= _SMEM_LIMIT:
             return v

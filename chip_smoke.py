@@ -111,10 +111,12 @@ from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 # the third lowsim_15x15's leaf forward (2,048 envs × 16 lanes; its root
 # forward is the first shape), the next four the other bundles, the next
 # five every other kernel instantiation of csrc/resblock.cu (bf16
-# streaming at 64 channels, tiled at 9x9, f32 plain at each channel
-# count), and the last five the train loop's eval: one game a colour, the
-# root (1) and the Gumbel passes of 16, 8, 4 and 2 lanes of a 64-sim
-# search (EVAL_BATCHES; phase train_loop checks it saw no other), then
+# streaming at 64 channels, tiled at 9x9, and f32 general at 19x19 with
+# 64, 96 and 128 channels, the shapes the f32 plain kernel ran before the
+# general one replaced it), and the last five the train loop's eval: one
+# game a colour, the root (1) and the Gumbel passes of 16, 8, 4 and 2
+# lanes of a 64-sim search (EVAL_BATCHES; phase train_loop checks it saw
+# no other), then
 # train_two_ranks' root and leaf forwards, 1,024 envs a rank × 16 lanes
 # (TWO_RANK_BATCHES; that phase checks it saw no other), and last
 # renju_19x19 self-play's leaf and root forwards (512 envs × 8 lanes, and
@@ -128,9 +130,9 @@ SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (2048, 15, 64, torch.float32, "tiled"),
           (256, 19, 64, torch.bfloat16, "streaming"),
           (256, 9, 64, torch.float32, "tiled"),
-          (256, 19, 64, torch.float32, "f32_plain"),
-          (256, 19, 96, torch.float32, "f32_plain"),
-          (256, 19, 128, torch.float32, "f32_plain")]
+          (256, 19, 64, torch.float32, "general"),
+          (256, 19, 96, torch.float32, "general"),
+          (256, 19, 128, torch.float32, "general")]
 EVAL_BATCHES = (1, 2, 4, 8, 16)
 SHAPES += [(b, 15, 64, torch.bfloat16, "resident") for b in EVAL_BATCHES]
 TWO_RANK_BATCHES = (1024, 16384)
@@ -142,20 +144,24 @@ SHAPES += [(4096, 19, 128, torch.bfloat16, "streaming"),
 # test shapes (f32 5x5 x 16 and 7x7 x 32), tiny_test's board and width in
 # bf16 at a batch of 256, C not a multiple of 8 (48 and 20), then phase
 # general_shapes' leaf forwards: chip_15x15 at 256 channels and on a 21x21
-# board (2,048 leaves), the 33x33 search's board, and f32 beyond
-# f32_plain's shared memory. GENERAL_ROW is the row the kernels line shows
+# board (2,048 leaves), the 33x33 search's board, f32 whose y exceeds
+# shared memory (it goes to the workspace), and the kernel's edges: batch
+# 1 at 256 channels (a 256-channel net's eval), one sample more than the
+# 132-CTA grid at C = 40 (K padded to 48), C = 8 (below one k16 step),
+# and a 240x240 board at C = 72, too wide for two slabs of all three tap
+# rows (span 1).
+# GENERAL_ROW is the row the kernels line shows
 GENERAL_SHAPES = [(4, 5, 16, torch.float32), (4, 7, 32, torch.float32),
                   (256, 5, 16, torch.bfloat16),
                   (2048, 15, 48, torch.bfloat16), (64, 9, 20, torch.bfloat16),
                   (2048, 15, 256, torch.bfloat16),
                   (2048, 21, 64, torch.bfloat16),
                   (256, 33, 64, torch.bfloat16),
-                  (256, 19, 192, torch.float32)]
+                  (256, 19, 192, torch.float32),
+                  (1, 15, 256, torch.bfloat16), (133, 9, 40, torch.bfloat16),
+                  (64, 6, 8, torch.bfloat16), (1, 240, 72, torch.bfloat16)]
 SHAPES += [(b, s, c, dt, "general") for b, s, c, dt in GENERAL_SHAPES]
 GENERAL_ROW = (2048, 15, 256)
-# the general rows' host time per call: fewer unsynchronised calls (each
-# launch takes milliseconds, so the host waits on the device's queue)
-GENERAL_HOST_CALLS = 20
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -259,14 +265,14 @@ ITER_KEYS = {"t", "kind", "iter", "black_wins", "buffer_size", "draws",
              "sims_per_s", "lr_at_floor", "lr_at_ceiling"}
 # phase general_shapes: tiny_test's cli train with the kernel (5×5 × 16,
 # f32: 2 iterations, before any eval or checkpoint falls due but the
-# final checkpoint); one ply of chip_15x15 self-play at 256 channels (cut
-# to 64 sims a move: 8 passes of 2,048 leaves) and on a 21×21 board (the
-# preset's 400 sims), random weights; a 64-sim packed search of one env on
-# a 33×33 board
+# final checkpoint); one ply of chip_15x15 self-play at 256 channels and
+# on a 21×21 board (the preset's 400 sims: 50 passes of 2,048 leaves and
+# the root), random weights; a 64-sim packed search of one env on a 33×33
+# board
 GENERAL_TRAIN_ARGV = ["train", "--preset", "tiny_test",
                       "--set", "net.use_pallas=true", "--iters", "2"]
 GENERAL_PLIES = 1
-GENERAL_WIDE = ["net.channels=256", "mcts.num_simulations=64"]
+GENERAL_WIDE = ["net.channels=256"]
 GENERAL_BOARD = ["env.board_size=21"]
 GENERAL_SEARCH_SIMS = 64
 # cli eval: two games against the rollout anchor at a small budget
@@ -339,13 +345,12 @@ def phase_select_latency(plib):
     return inputs
 
 
-def timed(row: dict, kernel, plain,
-          host_calls: int = timing.HOST_CALLS) -> None:
+def timed(row: dict, kernel, plain) -> None:
     """Device ms of the kernel's wrapper (graph replay), its host µs per
-    call over `host_calls` calls, and the plain version's eager ms, into
-    `row`."""
+    call over timing.HOST_CALLS calls, and the plain version's eager ms,
+    into `row`."""
     row["ms"], row["ms_spread"] = timing.graph_ms(kernel)
-    row["host_us_per_call"] = timing.host_us_per_call(kernel, host_calls)
+    row["host_us_per_call"] = timing.host_us_per_call(kernel)
     row["plain_ms"], row["plain_ms_spread"] = timing.eager_ms(plain)
 
 
@@ -376,8 +381,7 @@ def phase_kernel_vs_plain():
             emit("kernel_vs_plain", **row, ok=False)
             raise AssertionError(f"resblock kernel disagrees: {row}")
         timed(row, lambda: rb.fused_resblock(x, w1, b1, w2, b2),
-              lambda: rb.fused_resblock_reference(x, w1, b1, w2, b2),
-              GENERAL_HOST_CALLS if kind == "general" else timing.HOST_CALLS)
+              lambda: rb.fused_resblock_reference(x, w1, b1, w2, b2))
         # cuDNN's best algorithm, picked in the warm-up before the capture
         torch.backends.cudnn.benchmark = True
         row["library_ms"], row["library_ms_spread"] = timing.graph_ms(

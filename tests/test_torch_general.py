@@ -3,9 +3,9 @@ the select kernel's chunk-streaming path, against the JAX package.
 
 JAX's ``fused_resblock`` tiles only the batch, so it takes any C and any
 board; JAX's ``select_batch`` takes any ``A_pad``. On CUDA the port runs
-those shapes through the resblock kernel's fifth variant, ``general``, and
+those shapes through the resblock kernel's ``general`` variant, and
 the select kernel's streaming path (``A_pad`` > 1024). Here: the variant
-chooser picks ``general`` exactly where the four fast variants do not fit;
+chooser picks ``general`` exactly where the three fast variants do not fit;
 the plain twin and the fused net match JAX's Pallas kernel (interpret
 mode) at such shapes; and a numpy emulation of the streaming select
 kernel's warp matches JAX's ``select_batch`` (interpret) bit for bit at
@@ -40,7 +40,9 @@ GENERAL_SHAPES = [(4, 5, 16, torch.float32), (4, 7, 32, torch.float32),
                   (64, 9, 20, torch.bfloat16), (2048, 15, 256, torch.bfloat16),
                   (2048, 21, 64, torch.bfloat16),
                   (256, 33, 64, torch.bfloat16),
-                  (256, 19, 192, torch.float32)]
+                  (256, 19, 192, torch.float32),
+                  (1, 15, 256, torch.bfloat16), (133, 9, 40, torch.bfloat16),
+                  (64, 6, 8, torch.bfloat16), (1, 240, 72, torch.bfloat16)]
 
 
 @pytest.mark.parametrize("b,size,c,dtype", GENERAL_SHAPES)
@@ -56,22 +58,75 @@ def test_variant_picks_general(b, size, c, dtype):
     assert rb._check(t, w, bias, w, bias) == "general"
 
 
-def test_general_keeps_y_in_shared_memory_where_it_fits():
-    """y of one sample sits beside the staging tiles where it fits (15×15
-    × 256 bf16: 115,200 B) and in a device workspace where it does not
-    (19×19 × 192 f32: 277,248 B); the staging tiles match the source."""
+def general_budget(h, w, c, bf16):
+    """csrc/resblock.cu's general variant's shared memory, from the tile
+    constants in its source: (ring and slabs, y's bytes, y on chip)."""
     src = open(os.path.join(CSRC, "resblock.cu")).read()
     body = src[src.index("namespace general {"):]
-    const = {k: int(v) for k, v in re.findall(
-        r"constexpr int (BM|BN|BK) = (\d+);", body)}
-    pad = int(re.search(r"kRowA = BM \+ (\d+);", body).group(1))
-    stage = 2 * (const["BK"] * (const["BM"] + pad)
-                 + const["BK"] * const["BN"]) * 4
-    assert rb._GENERAL_STAGE == stage == 16_896
+    pick = {k: tuple(map(int, re.search(
+        rf"constexpr int {k}\(int elem\) {{\s*return elem == 2 \? (\d+) : "
+        rf"(\d+);", body).groups())) for k in ("bk", "stages", "warp_m")}
+    warp_n = int(re.search(r"constexpr int kWarpN = (\d+);", body).group(1))
+    warps_n = int(re.search(r"constexpr int kWarpsN = (\d+);", body).group(1))
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
+    i = 0 if bf16 else 1
+    elem = 2 if bf16 else 4
+    pad = 16 // elem
+    bk, stages, bm = pick["bk"][i], pick["stages"][i], pick["warp_m"][i]
+    bm *= threads // 32 // warps_n
+    bn = warp_n * warps_n
+    ring = stages * bk * (bn + pad) * elem
+    # span 3 (one slab where a tile reads one and the residual tile fits
+    # in it), else span 1
+    assert re.search(r"return span == 3 && c <= bk\(elem\) && "
+                     r"BN <= bk\(elem\) \? 1 : 2;", body)
+    zero = int(re.search(r"constexpr int kZeroRows = (\d+);", body).group(1))
+    for reach, slabs in ((2 * w + 2, 1 if c <= bk and bn <= bk else 2),
+                         (2, 2)):
+        rows = min(bm + reach, h * w) + zero
+        stage = ring + slabs * rows * (bk + pad) * elem
+        if stage <= rb._SMEM_LIMIT:
+            break
+    y = (h * w + zero) * (-(-c // (8 * pad)) * 8 * pad + pad) * elem
+    return stage, y, stage + y <= rb._SMEM_LIMIT
+
+
+def test_general_keeps_y_in_shared_memory_where_it_fits():
+    """The Python mirror of the general variant's shared memory matches
+    the tile constants parsed from its source: y of one sample beside the
+    ring and slabs where it fits (15×15 × 256 bf16), in the device
+    workspace where it does not (19×19 × 192 f32)."""
+    assert general_budget(15, 15, 256, True) == (93_312, 120_384, True)
+    assert rb._GENERAL_RING[True] == 27_648
+    assert rb._general_stage(15, 15, 256, True) == 93_312
     assert rb._y_in_smem(15, 15, 256, True)
-    assert rb._smem_bytes("general", 15, 15, 256, True) == 16_896 + 115_200
+    assert rb._smem_bytes("general", 15, 15, 256, True) == 213_696
+    assert general_budget(19, 19, 192, False) == (66_656, 285_376, False)
+    assert rb._GENERAL_RING[False] == 17_408
+    assert rb._general_stage(19, 19, 192, False) == 66_656
     assert not rb._y_in_smem(19, 19, 192, False)
-    assert rb._smem_bytes("general", 19, 19, 192, False) == 16_896
+    assert rb._smem_bytes("general", 19, 19, 192, False) == 66_656
+
+
+@pytest.mark.parametrize("b,size,c,dtype", GENERAL_SHAPES)
+def test_general_budget_and_workspace_match_source(b, size, c, dtype):
+    """At every general row: the mirrored shared memory is the source's
+    budget, and the workspace is alphafive_resblock_workspace's formula
+    (y of one sample per persistent CTA where y is not on chip)."""
+    bf16 = dtype == torch.bfloat16
+    stage, y, on_chip = general_budget(size, size, c, bf16)
+    assert rb._y_in_smem(size, size, c, bf16) == on_chip
+    assert rb._smem_bytes("general", size, size, c, bf16) == (
+        stage + y if on_chip else stage)
+    src = open(os.path.join(CSRC, "resblock.cu")).read()
+    body = src[src.index("long long workspace_bytes("):]
+    assert "if (general::y_in_smem(h, w, c, elem)) return 0;" in body
+    formula = re.search(r"return \(long long\)persistent_grid\(b\)"
+                        r"((?: \* \w+)+);", body).group(1)
+    want = 0 if on_chip else eval(
+        "grid" + formula, {}, dict(grid=min(b, rb._SMS), h=size, w=size,
+                                   c=c, elem=2 if bf16 else 4))
+    assert rb._workspace_bytes(b, size, size, c, bf16) == want
 
 
 @pytest.mark.parametrize("size,c", [(5, 16), (7, 32)])

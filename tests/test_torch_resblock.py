@@ -115,9 +115,9 @@ def test_kernel_wrapper_rejects_unsupported():
     (torch.bfloat16, 19, 64, "streaming"),  # 19 x 20 positions > 240
     (torch.float32, 15, 64, "tiled"),
     (torch.float32, 9, 64, "tiled"),
-    (torch.float32, 19, 64, "f32_plain"),   # 361 pixels > 256
-    (torch.float32, 19, 96, "f32_plain"),
-    (torch.float32, 19, 128, "f32_plain"),
+    (torch.float32, 19, 64, "general"),   # 361 pixels > 256
+    (torch.float32, 19, 96, "general"),
+    (torch.float32, 19, 128, "general"),
 ])
 def test_variant_chooser(dtype, size, c, want):
     """The kernel variant per shape, as csrc/resblock.cu's
@@ -141,12 +141,14 @@ def test_variant_budgets():
     # channel planes of 433 rows (384 positions + 42 shifted + junk)
     assert rb._smem_bytes("streaming", 19, 19, 128, True) == (
         3 * 128 * 128 * 2 + 16 * 433 * 16)
-    assert rb._smem_bytes("f32_plain", 19, 19, 128, False) == 19 * 19 * 128 * 4
-    # past 384 positions (streaming) or 232,448 B (f32_plain) the fast
+    # f32 19x19 x 128: the general variant's ring and slabs (y, 192,192 B,
+    # goes to the workspace)
+    assert rb._smem_bytes("general", 19, 19, 128, False) == 66_656
+    # past 384 positions (streaming) or 256 pixels (tiled) the fast
     # variants give way to the general one
     assert 25 * 26 > 384
     assert rb.variant(torch.bfloat16, 25, 25, 128) == "general"
-    assert rb._smem_bytes("f32_plain", 25, 25, 128, False) == 320_000
+    assert rb._smem_bytes("general", 25, 25, 128, False) == 70_112
     assert rb.variant(torch.float32, 25, 25, 128) == "general"
     with pytest.raises(ValueError, match="at least 1"):
         rb.variant(torch.float32, 5, 5, 0)
@@ -162,10 +164,10 @@ def test_variant_codes_match_source():
     enum = re.search(r"enum Variant \{(.*?)\};", src, re.S).group(1)
     codes = {int(v): k for k, v in re.findall(r"k(\w+) = (-?\d+)", enum)}
     names = {-1: "Refused", 0: "Streaming", 1: "Resident", 2: "Tiled",
-             3: "F32Plain", 4: "General"}
+             4: "General"}
     assert codes == names
     assert rb.VARIANTS == {0: "streaming", 1: "resident", 2: "tiled",
-                           3: "f32_plain", 4: "general"}
+                           4: "general"}
     assert set(rb.variant_launches) == set(rb.VARIANTS.values())
 
 
