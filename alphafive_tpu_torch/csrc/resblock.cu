@@ -57,19 +57,47 @@
 //       launch (no division in the sample loop). Four block barriers per
 //       sample, none per tap. benchmarks/resblock_profile.py times each
 //       phase on the card from the `// stamp` lines below.
-//   streaming (bf16, every other shape up to 19x19: C = 96, 128): the
+//   streaming (bf16, every other shape up to 19x19: C = 64, 96, 128): the
 //     taps of one conv (166 KB at C = 96, 295 KB at 128) do not fit beside
-//     a sample, so they stream from L2 through a 3-stage cp.async ring, one
-//     tap ahead of the tensor cores, one block barrier per tap.
+//     a sample, so they stream from L2, one tap ahead of the tensor cores.
+//     * What bounds it at renju_19x19's leaf forward, 4,096 x 19x19 x 128:
+//       0.872 TFLOP (0.882 ms at 989 TFLOP/s) against 2.42 GB of tap reads
+//       from L2 a launch (18 taps of 32 KB a sample). The tensor cores need
+//       3,072 cycles a tap for the three warpgroups' 48 wgmmas; a tap takes
+//       ~3,480 here. Of ~79,000 cycles a sample (131,097 in the first form,
+//       which fed the taps by cp.async under a block barrier a tap), ~15,000
+//       go to the output's copy-out and the next x's loads, which every
+//       CTA makes at about the same time; an L2 prefetch of the next x did
+//       not shorten them (benchmarks/resblock_profile.py, --ablate store /
+//       xload).
 //     * Persistent CTAs of three warpgroups, 128 positions each (384 >=
 //       19 x 20), the same position grid and channel-chunk planes as the
 //       resident kernel, but ONE activation buffer: y is written over x in
-//       place (conv 1 is done with x), x is reloaded from L2 for the
-//       residual after conv 2, and the output is written over it.
+//       place (conv 1 is done with x), the output over y.
 //     * M = output channels in two 64-row tiles (at C = 96 the second
 //       covers 32..95 and stores 64..95), wgmma m64n128k16 with the tap as
-//       an MN-major (transposed) A operand: a [Cin][Cout] tap is copied
-//       as is, no transpose.
+//       an MN-major (transposed) A operand.
+//     * The taps are packed once a launch (pack_taps, on the same stream)
+//       so that each is one contiguous run in device memory (32 KB at C =
+//       128). Each tap then moves into a 3-stage ring by one bulk copy that
+//       thread 0 issues and that completes on the stage's `full` mbarrier;
+//       every warp releases a stage on its `empty` mbarrier once its
+//       wgmmas have read it. No block barrier and no cp.async wait per
+//       tap: five barriers a sample, at the convs' boundaries. The
+//       producer is a consumer's thread, not a 13th warp: 416 threads
+//       would cap a thread at 152 registers, and ptxas already takes all
+//       168 that 384 allow.
+//     * The residual rides in conv 2's accumulators: conv 1's epilogue
+//       reads x at the rows it overwrites with y and starts conv 2 at b2 +
+//       x, so x is never reloaded.
+//     * 128 accumulators a thread of at most 168 registers: the epilogues
+//       form their rows from a mask of live fragments and their biases
+//       where they use them, and a wait holds no clock, so that little
+//       spills (128 bytes at C = 128).
+//     * The output's copy-out and the next sample's x share their 16 B
+//       pieces: each thread stores its output piece and issues the x
+//       piece into the same address, so the next x lands under the
+//       copy-out.
 //   tiled (f32, C = 64, boards up to 15x15): register-blocked SIMT. TF32
 //     would round the inputs, so no tensor cores. Persistent CTAs; x and y
 //     in halo buffers; each thread owns 8 pixels x 8 output channels (64
@@ -323,6 +351,61 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // Orders generic-proxy shared stores before later wgmma (async-proxy) reads.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers: phases complete when `count` arrivals (and every byte a bulk
+// copy announced with expect_tx) have come in.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the bulk-copy unit.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of bulk copy still to land.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// `bytes` (a multiple of 16) from device memory into shared memory by the
+// bulk-copy unit, counted against `bar`'s expected bytes as they land.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Halo-buffer row of pixel p of an h x w board: (p / w + 1, p % w + 1).
@@ -761,15 +844,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace tiled
 
 // ---------------------------------------------------------------------------
-// streaming: bf16 at every other shape (19x19 with C = 96 or 128): taps
-// streamed through a cp.async ring, one activation buffer per CTA
+// streaming: bf16 at every other shape (19x19 with C = 64, 96 or 128): the
+// taps, packed once a launch, stream through an mbarrier ring of bulk
+// copies; one activation buffer per CTA
 
 namespace streaming {
 
 constexpr int kWarpgroups = 3;
 constexpr int kThreadsS = 128 * kWarpgroups;
+constexpr int kWarps = kThreadsS / 32;  // each releases every ring stage
 constexpr int N = 128;     // positions per warpgroup: 384 >= 19 x 20
 constexpr int kStages = 3;  // weight taps in flight
+constexpr int kTaps = 18;   // both convs' taps, packed by pack_taps
 
 // One buffer: the board grid of the resident kernel (h x (w + 1)
 // positions, column w junk) in C / 8 channel-chunk planes, every row a tap
@@ -778,26 +864,31 @@ __host__ __device__ constexpr int buffer_rows(int w) {
   return (kWarpgroups * N + 2 * (w + 1) + 2 + 7) / 8 * 8 + 1;
 }
 
+// The ring of taps, the buffer, then a full and an empty mbarrier a stage.
 __host__ __device__ constexpr int smem_bytes(int w, int c) {
-  return kStages * c * c * 2 + c / 8 * buffer_rows(w) * 16;
+  return kStages * c * c * 2 + c / 8 * buffer_rows(w) * 16 + 2 * kStages * 8;
 }
 
 __host__ __device__ constexpr bool fits(int h, int w, int c) {
   return h * (w + 1) <= kWarpgroups * N && smem_bytes(w, c) <= kSmemLimit;
 }
 
-// The weights are the A operand in the MN-major layout (transposed A), so
-// a [Cin][Cout] tap needs no transpose: the 16 B piece (cin, Cout chunk j)
-// goes to row cin of plane j (plane = C * 16 B). Groups of 8 threads take 8
-// consecutive cin of one chunk: 128 B of shared memory, 16 B pieces of
-// 64 B global runs.
-template <int C>
-__device__ __forceinline__ void stage_tap(const __nv_bfloat16* __restrict__ w,
-                                          uint32_t stage) {
-  for (int i = threadIdx.x; i < C * C / 8; i += kThreadsS) {
-    const int g = i >> 3, j = g % (C / 8), cin = (g / (C / 8)) * 8 + (i & 7);
-    cp_async16(stage + j * C * 16 + cin * 16, w + cin * C + j * 8);
-  }
+// The weights are the A operand in the MN-major layout (transposed A): tap
+// t goes to taps[t][Cout / 8][Cin][8], so element (t, cin, cout) sits at
+// byte 2 C^2 t + 16 C (cout / 8) + 16 cin + 2 (cout % 8) and each tap is
+// one contiguous run of 2 C^2 bytes (32 KB at C = 128) that one bulk copy
+// moves into a ring stage. One thread a 16 B piece: 8 consecutive Cout of
+// row cin of w1/w2 [9][Cin][Cout].
+__global__ void pack_taps(const uint4* __restrict__ w1,
+                          const uint4* __restrict__ w2,
+                          uint4* __restrict__ taps, int c) {
+  const int per_tap = c * c / 8;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= kTaps * per_tap) return;
+  const int t = i / per_tap, r = i - t * per_tap;
+  const int j = r / c, cin = r - j * c;
+  const uint4* w = t < 9 ? w1 + t * per_tap : w2 + (t - 9) * per_tap;
+  taps[i] = w[cin * (c / 8) + j];
 }
 
 // MN-major no-swizzle A: 8 rows (K) of 16 B (8 M elements) per core
@@ -827,65 +918,78 @@ __device__ __forceinline__ uint32_t piece_offset(int i, int pitch,
   return c * plane + (p + r + pitch + 1) * 16;
 }
 
-// All pieces of sample x's activations into the buffer by cp.async.
-template <int C>
-__device__ __forceinline__ void stage_x(const __nv_bfloat16* __restrict__ xb,
-                                        uint32_t buf, int hw, int pitch,
-                                        uint32_t magic, int plane) {
-  const uint4* src = reinterpret_cast<const uint4*>(xb);
-  for (int i = threadIdx.x; i < hw * Shape<C>::kPieces; i += kThreadsS)
-    cp_async16(buf + piece_offset<C>(i, pitch, magic, plane), src + i);
-}
-
 // acc (tile m, 4j + 2h + e) of warp q of warpgroup g: channel tile0(m) +
 // 16 q + 8 h + gid, position g N + 8 j + 2 tig + e. Fragment pair k (j =
 // 2k, 2k + 1) moves by ldmatrix/stmatrix .trans through the rows of chunk
 // plane tile0(m) / 8 + 2 q + (lane / 8) % 2 that this lane addresses: row
-// lane % 8 of fragment 2k + lane / 16, junk positions to the junk row (the
-// last). With kResidual, the stored value is relu(acc + b + x) with x read
-// first from the same rows (each warp reads and writes only its own
-// fragments: in place). Rows and biases are formed here, not held in
-// registers across the taps.
-template <int C, bool kResidual>
-__device__ __forceinline__ void epilogue(
-    const float (&acc)[Shape<C>::kTiles][N / 2],
-    const float* __restrict__ bias, uint32_t buf, int h, int w, int plane) {
-  const int lane = threadIdx.x & 31, q = (threadIdx.x >> 5) & 3;
-  const int hsel = (lane >> 3) & 1, pitch = w + 1;
-  uint32_t row[N / 16];
-#pragma unroll
+// lane % 8 of fragment 2k + lane / 16, position o0 + 16 k with o0 =
+// fragment_position(), at buffer row o0 + 16 k + pitch + 1, or at the junk
+// row (the last) where bit k of `live` is clear. Each warp reads and
+// writes only its own fragments, so both epilogues work in place. Conv
+// 1's (!kOut) first reads x at those rows, writes y = relu(acc + b1) over
+// it and restarts acc at b2 + x, which conv 2 accumulates onto: the
+// residual costs no reload and no registers across conv 2. Conv 2's
+// (kOut) writes out = relu(acc) over y. Biases and rows are formed here:
+// beside the 128 accumulators, registers are short.
+__device__ __forceinline__ int fragment_position() {
+  const int lane = threadIdx.x & 31;
+  return (threadIdx.x >> 7) * N + 8 * (lane >> 4) + (lane & 7);
+}
+
+// The `live` mask of the epilogue: bit k set where pair k's position is
+// on the board (not column w, not past the last row).
+__device__ __forceinline__ uint32_t live_fragments(int h, int w) {
+  const int o0 = fragment_position(), pitch = w + 1;
+  uint32_t live = 0;
   for (int k = 0; k < N / 16; ++k) {
-    const int o = (threadIdx.x >> 7) * N + 8 * (2 * k + (lane >> 4)) +
-                  (lane & 7);
-    const bool live = o < h * pitch && o % pitch != w;
-    row[k] = (live ? o + pitch + 1 : plane / 16 - 1) * 16;
+    const int o = o0 + 16 * k;
+    live |= (uint32_t)(o < h * pitch && o % pitch != w) << k;
   }
+  return live;
+}
+
+template <int C, bool kOut>
+__device__ __forceinline__ void epilogue(
+    float (&acc)[Shape<C>::kTiles][N / 2], const float* __restrict__ b1,
+    const float* __restrict__ b2, uint32_t buf, int w, int plane,
+    uint32_t live) {
+  const int lane = threadIdx.x & 31, q = (threadIdx.x >> 5) & 3;
+  const int hsel = (lane >> 3) & 1;
+  const uint32_t row0 = (fragment_position() + w + 2) * 16;
+  const uint32_t junk = plane - 16;
 #pragma unroll
   for (int m = 0; m < Shape<C>::kTiles; ++m) {
     if (m == 1 && Shape<C>::kTile1 < 64 && 16 * q < 64 - Shape<C>::kTile1)
       continue;  // C = 96: channels 32..63 belong to tile 0
     const int c0 = (m ? Shape<C>::kTile1 : 0) + 16 * q + (lane >> 2);
-    const float bv[2] = {__ldg(bias + c0), __ldg(bias + c0 + 8)};
+    float bv[2] = {0.f, 0.f}, rv[2] = {0.f, 0.f};
+    if (!kOut) {
+      bv[0] = __ldg(b1 + c0), bv[1] = __ldg(b1 + c0 + 8);
+      rv[0] = __ldg(b2 + c0), rv[1] = __ldg(b2 + c0 + 8);
+    }
     const uint32_t chunk =
         buf + ((m ? Shape<C>::kTile1 : 0) / 8 + 2 * q + hsel) * plane;
 #pragma unroll
     for (int k = 0; k < N / 16; ++k) {
       uint32_t v[4], xr[4];
-      if (kResidual) ldmatrix_x4_trans(xr, chunk + row[k]);
+      const uint32_t at = chunk + ((live >> k) & 1 ? row0 + 256 * k : junk);
+      if (!kOut) ldmatrix_x4_trans(xr, at);
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
         const int j = 2 * k + (f >> 1), hh = f & 1;
-        float lo = acc[m][4 * j + 2 * hh] + bv[hh];
-        float hi = acc[m][4 * j + 2 * hh + 1] + bv[hh];
-        if (kResidual) {
+        float& lo = acc[m][4 * j + 2 * hh];
+        float& hi = acc[m][4 * j + 2 * hh + 1];
+        if (kOut) {
+          v[f] = pack_bf16(fmaxf(lo, 0.f), fmaxf(hi, 0.f));
+        } else {
+          v[f] = pack_bf16(fmaxf(lo + bv[hh], 0.f), fmaxf(hi + bv[hh], 0.f));
           const float2 xf = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(&xr[f]));
-          lo += xf.x;
-          hi += xf.y;
+          lo = rv[hh] + xf.x;
+          hi = rv[hh] + xf.y;
         }
-        v[f] = pack_bf16(fmaxf(lo, 0.f), fmaxf(hi, 0.f));
       }
-      stmatrix_x4_trans(chunk + row[k], v);
+      stmatrix_x4_trans(at, v);
     }
   }
 }
@@ -893,54 +997,71 @@ __device__ __forceinline__ void epilogue(
 template <int C>
 __global__ void __launch_bounds__(kThreadsS, 1)
     bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ w1,
-                const float* __restrict__ b1,
-                const __nv_bfloat16* __restrict__ w2,
-                const float* __restrict__ b2,
+                const __nv_bfloat16* __restrict__ taps,
+                const float* __restrict__ b1, const float* __restrict__ b2,
                 __nv_bfloat16* __restrict__ out, int nb, int h, int w) {
   using S = Shape<C>;
   constexpr int kTap = C * C * 2;
   extern __shared__ __align__(128) unsigned char smem_streaming[];
-  const uint32_t stages = smem_u32(smem_streaming);
-  const uint32_t buf = stages + kStages * kTap;
-  const int hw = h * w, pitch = w + 1, rows = buffer_rows(w);
-  const int plane = rows * 16;
+  unsigned char* bufp = smem_streaming + kStages * kTap;
+  const uint32_t stages = smem_u32(smem_streaming), buf = smem_u32(bufp);
+  const int hw = h * w, pitch = w + 1, plane = buffer_rows(w) * 16;
+  const uint32_t full = buf + S::kPieces * plane;  // kStages mbarriers
+  const uint32_t empty = full + kStages * 8;       // kStages mbarriers
   const uint32_t magic = 0xFFFFFFFFu / w + 1;
   for (int i = threadIdx.x; i < S::kPieces * plane / 16; i += kThreadsS)
-    reinterpret_cast<uint4*>(smem_streaming + kStages * kTap)[i] =
-        make_uint4(0, 0, 0, 0);
+    reinterpret_cast<uint4*>(bufp)[i] = make_uint4(0, 0, 0, 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kWarps);
+    }
+    fence_mbar_init();
+  }
+  const uint32_t live = live_fragments(h, w);
   const uint64_t db = plain_desc(buf + (threadIdx.x >> 7) * N * 16, plane);
   const uint32_t kstep_b = (2 * plane) >> 4;
-  __syncthreads();  // buffer zeroed before the first x lands
+  __syncthreads();  // buffer zeroed before x lands; barriers initialised
 
-  // the tap stream: use u reads stage u % 3 and holds tap u % 18 (conv 1
-  // for 0..8, conv 2 for 9..17); its load is issued one use ahead
-  auto load_tap = [&](int u) {
-    const int t = u % 18;
-    stage_tap<C>((t < 9 ? w1 : w2) + (t % 9) * C * C,
-                 stages + (u % kStages) * kTap);
+  // The tap stream: use u, counted across this CTA's samples, reads stage
+  // u % 3, which holds tap u % 18 (conv 1 for 0..8, conv 2 for 9..17).
+  // Thread 0 issues use v's bulk copy once every warp has released use
+  // v - 3 from that stage (the empty barrier's previous phase; a fresh
+  // barrier passes parity 1), and none past this CTA's last sample, so
+  // no thread waits on a stage that nobody fills.
+  const int uses =
+      kTaps * ((nb - 1 - (int)blockIdx.x) / (int)gridDim.x + 1);
+  auto load_tap = [&](int v) {
+    if (threadIdx.x != 0 || v >= uses) return;
+    const int s = v % kStages;
+    // ablate: empty
+    mbar_wait(empty + 8 * s, ((v / kStages) & 1) ^ 1);
+    uint32_t tx = 0;
+    // ablate: bulk
+    tx = kTap;
+    mbar_expect_tx(full + 8 * s, tx);
+    if (tx)
+      bulk_copy(stages + s * kTap, taps + (size_t)(v % kTaps) * C * C, tx,
+                full + 8 * s);
   };
-  stage_x<C>(x + (size_t)blockIdx.x * hw * C, buf, hw, pitch, magic, plane);
+  {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        x + (size_t)blockIdx.x * hw * C);
+    for (int i = threadIdx.x; i < hw * S::kPieces; i += kThreadsS)
+      cp_async16(buf + piece_offset<C>(i, pitch, magic, plane), src + i);
+  }
   load_tap(0);
-  cp_async_commit();
+  load_tap(1);
   int u = 0;
   for (int b = blockIdx.x; b < nb; b += gridDim.x) {
-    const bool more = b + (int)gridDim.x < nb;
     float acc[S::kTiles][N / 2];
-    // tap use u: wait for its stage, free stage (u + 1) % 3 and fill it
-    // with the next use's tap, then issue this tap's wgmmas (a load issued
-    // behind the wgmmas lands later: slower on the card). Nothing in it
-    // touches acc, so the wgmmas of consecutive taps overlap.
+    // tap use u: wait for its stage, issue its wgmmas; once this
+    // warpgroup's use u - 1 is done, each warp releases that stage and
+    // thread 0 refills it with use u + 2. Nothing in it touches acc, so
+    // the wgmmas of consecutive taps overlap; no block barrier.
     auto tap = [&](int s) {
-      cp_async_wait_all();  // tap u (and, at s = 0, x) landed
-      wgmma_wait<1>();      // this warpgroup's use u - 2 is done
-      fence_async_shared();
-      // ablate: barrier
-      __syncthreads();      // for every warpgroup: stage (u + 1) % 3 free
-      // stamp: s
-      // ablate: loads
-      if (s < 17 || more) load_tap(u + 1);
-      cp_async_commit();
+      mbar_wait(full + 8 * (u % kStages), (u / kStages) & 1);
+      // stamp: s + (s >= 9) * 2
       const int t = s % 9;
       uint64_t a = mn_desc(stages + (u % kStages) * kTap, C * 16);
       uint64_t bd = db + (uint64_t)((((t / 3) * pitch + t % 3) * 16) >> 4);
@@ -955,15 +1076,11 @@ __global__ void __launch_bounds__(kThreadsS, 1)
                                       kc * 256) >> 4),
                       bd + (uint64_t)(kc * kstep_b), 1);
       wgmma_commit();
-    };
-    auto zero = [&]() {
-#pragma unroll
-      for (int m = 0; m < S::kTiles; ++m)
-#pragma unroll
-        for (int i = 0; i < N / 2; ++i) {
-          acc[m][i] = 0.f;
-          fence_operand(acc[m][i]);
-        }
+      wgmma_wait<1>();  // this warpgroup's use u - 1 is done
+      if ((threadIdx.x & 31) == 0 && u > 0)
+        mbar_arrive(empty + 8 * ((u - 1) % kStages));
+      load_tap(u + 2);
+      __syncwarp();
     };
     auto drain = [&]() {  // every warpgroup's wgmmas done, acc readable
       wgmma_wait<0>();
@@ -973,35 +1090,50 @@ __global__ void __launch_bounds__(kThreadsS, 1)
         for (int i = 0; i < N / 2; ++i) fence_operand(acc[m][i]);
       __syncthreads();
     };
-    zero();
+    cp_async_wait_all();  // this thread's pieces of x landed
+    fence_async_shared();
+    __syncthreads();      // all of x, for every warpgroup's taps
+#pragma unroll
+    for (int m = 0; m < S::kTiles; ++m)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        acc[m][i] = 0.f;
+        fence_operand(acc[m][i]);
+      }
     for (int s = 0; s < 9; ++s, ++u) tap(s);
-    drain();
-    epilogue<C, false>(acc, b1, buf, h, w, plane);  // y over x, in place
-    fence_async_shared();  // the barrier of tap 9 publishes y
-    zero();
+    drain();  // every warpgroup is done reading x
+    // stamp: 9
+    epilogue<C, false>(acc, b1, b2, buf, w, plane, live);  // y over x
+#pragma unroll
+    for (int m = 0; m < S::kTiles; ++m)
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) fence_operand(acc[m][i]);
+    fence_async_shared();
+    __syncthreads();  // y complete before conv 2 reads it
+    // stamp: 10
     for (int s = 9; s < 18; ++s, ++u) tap(s);
-    drain();
-    // stamp: 18
-    // x again for the residual (from L2), then out over it, in place
-    stage_x<C>(x + (size_t)b * hw * C, buf, hw, pitch, magic, plane);
-    cp_async_wait_all();
-    __syncthreads();
-    // stamp: 19
-    epilogue<C, true>(acc, b2, buf, h, w, plane);
-    __syncthreads();
+    drain();  // every warpgroup is done reading y
     // stamp: 20
-    uint4* ob = reinterpret_cast<uint4*>(out + (size_t)b * hw * C);
-    for (int i = threadIdx.x; i < hw * S::kPieces; i += kThreadsS)
-      ob[i] = *reinterpret_cast<const uint4*>(
-          smem_streaming + kStages * kTap +
-          piece_offset<C>(i, pitch, magic, plane));
-    __syncthreads();  // copied out: the next x may land
+    epilogue<C, true>(acc, b1, b2, buf, w, plane, live);  // out over y
+    __syncthreads();
     // stamp: 21
-    if (more)
-      stage_x<C>(x + (size_t)(b + gridDim.x) * hw * C, buf, hw, pitch, magic,
-                 plane);
+    // Each piece of the output to device memory, and the next sample's x
+    // piece into the same address: each thread rewrites only what it has
+    // read itself, so no barrier between the two; tap 0 of the next
+    // sample waits only for what has not landed yet.
+    const bool more = b + (int)gridDim.x < nb;
+    const uint4* xn = reinterpret_cast<const uint4*>(
+        x + (size_t)(more ? b + gridDim.x : b) * hw * C);
+    uint4* ob = reinterpret_cast<uint4*>(out + (size_t)b * hw * C);
+    for (int i = threadIdx.x; i < hw * S::kPieces; i += kThreadsS) {
+      const uint32_t off = piece_offset<C>(i, pitch, magic, plane);
+      // ablate: store
+      ob[i] = *reinterpret_cast<const uint4*>(bufp + off);
+      // ablate: xload
+      if (more) cp_async16(buf + off, xn + i);
+    }
+    // stamp: 22
   }
-  cp_async_wait_all();
 }
 
 }  // namespace streaming
@@ -1586,10 +1718,14 @@ int persistent_grid(int b) {
   return b < sms ? b : sms;
 }
 
-// Bytes of device workspace the general variant needs for a batch of b:
-// y of one sample per CTA where it does not fit in shared memory, else 0.
+// Bytes of device workspace a batch of b needs: the streaming variant's
+// packed taps; the general variant's y of one sample per CTA where it does
+// not fit in shared memory; else 0.
 long long workspace_bytes(int dtype, int b, int h, int w, int c) {
-  if (b < 1 || resblock_variant(dtype, h, w, c) != kGeneral) return 0;
+  if (b < 1) return 0;
+  const int variant = resblock_variant(dtype, h, w, c);
+  if (variant == kStreaming) return (long long)streaming::kTaps * c * c * 2;
+  if (variant != kGeneral) return 0;
   const int elem = dtype == 1 ? 2 : 4;
   if (general::y_in_smem(h, w, c, elem)) return 0;
   return (long long)persistent_grid(b) * h * w * c * elem;
@@ -1605,16 +1741,32 @@ cudaError_t launch(K kernel, int grid, int threads, int smem,
   return cudaGetLastError();
 }
 
+// Both convs' taps into the streaming kernel's layout at `taps`
+// (kTaps * c * c * 2 bytes), on stream s.
+cudaError_t pack_streaming_taps(const void* w1, const void* w2, void* taps,
+                                int c, cudaStream_t s) {
+  const int pieces = streaming::kTaps * c * c / 8;
+  streaming::pack_taps<<<(pieces + kThreads - 1) / kThreads, kThreads, 0,
+                         s>>>(static_cast<const uint4*>(w1),
+                              static_cast<const uint4*>(w2),
+                              static_cast<uint4*>(taps), c);
+  return cudaGetLastError();
+}
+
+// The pack, then the block, on the same stream: a graph that captures the
+// call holds both.
 template <int C>
 cudaError_t launch_streaming(const void* x, const void* w1, const void* b1,
-                             const void* w2, const void* b2, void* out, int b,
-                             int h, int w, cudaStream_t s) {
+                             const void* w2, const void* b2, void* out,
+                             void* taps, int b, int h, int w,
+                             cudaStream_t s) {
+  const cudaError_t err = pack_streaming_taps(w1, w2, taps, C, s);
+  if (err != cudaSuccess) return err;
   return launch(streaming::bf16_kernel<C>, persistent_grid(b),
                 streaming::kThreadsS, streaming::smem_bytes(w, C), s,
                 static_cast<const __nv_bfloat16*>(x),
-                static_cast<const __nv_bfloat16*>(w1),
+                static_cast<const __nv_bfloat16*>(taps),
                 static_cast<const float*>(b1),
-                static_cast<const __nv_bfloat16*>(w2),
                 static_cast<const float*>(b2),
                 static_cast<__nv_bfloat16*>(out), b, h, w);
 }
@@ -1643,8 +1795,9 @@ extern "C" int alphafive_resblock_variant(int dtype, int h, int w, int c) {
 }
 
 // Bytes of device workspace alphafive_resblock needs for this batch and
-// shape (0 for every variant but general where y does not fit in shared
-// memory); the caller allocates it and passes it as `workspace`.
+// shape (the streaming variant's packed taps; y of each CTA for the general
+// variant where y does not fit in shared memory; else 0); the caller
+// allocates it and passes it as `workspace`.
 extern "C" long long alphafive_resblock_workspace(int dtype, int b, int h,
                                                   int w, int c) {
   return workspace_bytes(dtype, b, h, w, c);
@@ -1694,14 +1847,28 @@ extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
       return launch_general<float>(x, w1, b1, w2, b2, out, workspace, b, h,
                                    w, c, s);
     case kStreaming:
+      if (workspace == nullptr) return cudaErrorInvalidValue;
       switch (c) {
         case 64:
-          return launch_streaming<64>(x, w1, b1, w2, b2, out, b, h, w, s);
+          return launch_streaming<64>(x, w1, b1, w2, b2, out, workspace, b,
+                                      h, w, s);
         case 96:
-          return launch_streaming<96>(x, w1, b1, w2, b2, out, b, h, w, s);
+          return launch_streaming<96>(x, w1, b1, w2, b2, out, workspace, b,
+                                      h, w, s);
         case 128:
-          return launch_streaming<128>(x, w1, b1, w2, b2, out, b, h, w, s);
+          return launch_streaming<128>(x, w1, b1, w2, b2, out, workspace, b,
+                                       h, w, s);
       }
   }
   return cudaErrorInvalidValue;
+}
+
+// The streaming kernel's tap pack alone (alphafive_resblock runs it before
+// each streaming launch): w1/w2 bf16 [9][c][c], c a multiple of 8, into
+// `taps`, 18 * c * c * 2 bytes, on `stream`. Returns a cudaError_t.
+extern "C" int alphafive_resblock_pack_taps(const void* w1, const void* w2,
+                                            void* taps, int c, void* stream) {
+  if (c < 8 || c % 8) return cudaErrorInvalidValue;
+  return pack_streaming_taps(w1, w2, taps, c,
+                             static_cast<cudaStream_t>(stream));
 }

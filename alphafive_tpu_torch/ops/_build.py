@@ -72,6 +72,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.alphafive_resblock_workspace.restype = ctypes.c_longlong
     lib.alphafive_resblock_workspace.argtypes = [i32] * 5
     lib.alphafive_resblock_variant.restype = i32
+    lib.alphafive_resblock_pack_taps.restype = i32
+    lib.alphafive_resblock_pack_taps.argtypes = [ptr] * 3 + [i32, ptr]
     lib.alphafive_resblock_variant.argtypes = [i32] * 4
     lib.alphafive_select.restype = i32
     lib.alphafive_select.argtypes = ([ptr] + [i32] * 5 + [f32] * 2

@@ -62,6 +62,10 @@ VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 4: "general"}
 resblock_launches = 0  # kernel launches since the last reset
 # the same launches by the variant the library ran (see `variant`)
 variant_launches = dict.fromkeys(VARIANTS.values(), 0)
+# launches of the streaming variant's tap pack (one before each streaming
+# block, and each `pack_streaming_taps` on CUDA tensors)
+pack_launches = 0
+_TAPS = 18  # both convs' taps, as the streaming variant streams them
 
 
 def pack_conv_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -100,6 +104,46 @@ def fused_resblock_reference(x, w1, b1, w2, b2) -> torch.Tensor:
     return torch.relu(z).to(dt)
 
 
+def pack_streaming_taps_reference(w1, w2) -> torch.Tensor:
+    """Plain version of csrc/resblock.cu's ``streaming::pack_taps``: packed
+    ``w1``/``w2`` [9, Cin, Cout] → [18, Cout / 8, Cin, 8], element (t, cin,
+    cout) at [t, cout // 8, cin, cout % 8], so that each tap is one
+    contiguous run in the MN-major layout the streaming kernel's wgmma
+    reads."""
+    c = w1.shape[-1]
+    taps = torch.cat([w1, w2]).reshape(_TAPS, c, c // 8, 8)
+    return taps.permute(0, 2, 1, 3).contiguous()
+
+
+def pack_streaming_taps(w1, w2) -> torch.Tensor:
+    """The streaming variant's tap pack on its own: the kernel on CUDA
+    tensors (bf16, C a multiple of 8), the plain version on CPU ones."""
+    global pack_launches
+    if w1.device.type == "cpu":
+        return pack_streaming_taps_reference(w1, w2)
+    if w1.device.type != "cuda":
+        raise RuntimeError(f"no tap pack kernel for device {w1.device}")
+    c = w1.shape[-1]
+    for name, t in (("w1", w1), ("w2", w2)):
+        if (tuple(t.shape) != (9, c, c) or t.dtype != torch.bfloat16
+                or not t.is_contiguous() or t.device != w1.device
+                or t.data_ptr() % 16 or c % 8):
+            raise ValueError(f"{name}: want contiguous 16-byte aligned bf16 "
+                             f"[9, C, C] with C a multiple of 8, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    from alphafive_tpu_torch.ops import _build
+    lib = _build.load()
+    taps = torch.empty(_TAPS, c // 8, c, 8, dtype=w1.dtype, device=w1.device)
+    with torch.cuda.device(w1.device):
+        err = lib.alphafive_resblock_pack_taps(
+            w1.data_ptr(), w2.data_ptr(), taps.data_ptr(), c,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tap pack launch failed: CUDA error {err}")
+    pack_launches += 1
+    return taps
+
+
 # Shared-memory bytes of each kernel variant of csrc/resblock.cu, whose
 # resblock_variant() makes the same choice: `fused_resblock` raises if the
 # two disagree at a shape it launches. The bf16 kernels keep
@@ -107,7 +151,8 @@ def fused_resblock_reference(x, w1, b1, w2, b2) -> torch.Tensor:
 # output positions, plus the rows the taps shift into and a junk row:
 # "resident" holds both convs' 18 taps (147,456 B at C = 64) beside two
 # such buffers of 2 x (48 or 120) positions; "streaming" one buffer of
-# 3 x 128 positions beside a ring of 3 taps. "tiled" (f32) double-buffers
+# 3 x 128 positions beside a ring of 3 taps and its 6 mbarriers of 8 B
+# (a full and an empty one a stage). "tiled" (f32) double-buffers
 # one 16 KB tap beside two halo-padded buffers of 272 B rows; "general"
 # its ring and slabs, and y of one sample where that fits (else y goes to
 # a device workspace, `_y_in_smem`): rows of C rounded up to 128 B plus
@@ -124,11 +169,14 @@ def _y_in_smem(h: int, w: int, c: int, bf16: bool) -> bool:
 
 
 def _workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool) -> int:
-    """Bytes of device workspace the general variant takes at this batch
-    and shape (csrc/resblock.cu's workspace_bytes on a card of _SMS SMs):
-    y of one sample per persistent CTA where it does not fit on chip."""
-    if (b < 1 or variant(torch.bfloat16 if bf16 else torch.float32, h, w, c)
-            != "general" or _y_in_smem(h, w, c, bf16)):
+    """Bytes of device workspace a batch of this shape takes
+    (csrc/resblock.cu's workspace_bytes on a card of _SMS SMs): the
+    streaming variant's packed taps; the general variant's y of one sample
+    per persistent CTA where it does not fit on chip."""
+    kind = variant(torch.bfloat16 if bf16 else torch.float32, h, w, c)
+    if b >= 1 and kind == "streaming":
+        return _TAPS * c * c * 2
+    if b < 1 or kind != "general" or _y_in_smem(h, w, c, bf16):
         return 0
     return min(b, _SMS) * h * w * c * (2 if bf16 else 4)
 
@@ -142,7 +190,7 @@ def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
     if variant == "tiled":
         return (2 * c * c + 2 * (h + 2) * (w + 2) * (c + 4)) * 4
     if variant == "streaming":
-        return 3 * c * c * 2 + (c // 8) * rows(384) * 16
+        return 3 * c * c * 2 + (c // 8) * rows(384) * 16 + 2 * 3 * 8
     if variant == "general":
         return _general_stage(h, w, c, bf16) + (
             _y_bytes(h, w, c, bf16) if _y_in_smem(h, w, c, bf16) else 0)
@@ -202,7 +250,7 @@ def _check(x, w1, b1, w2, b2) -> str:
 
 def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
     """x [B,H,W,C]; w1/w2 [9,C,C] packed (BN folded); b1/b2 f32 [C]."""
-    global resblock_launches
+    global resblock_launches, pack_launches
     if x.device.type == "cpu":
         return fused_resblock_reference(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -219,7 +267,8 @@ def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
                            f"csrc/resblock.cu {ran or 'none'}")
     with torch.cuda.device(x.device):
         n = lib.alphafive_resblock_workspace(bf16, b, h, w, c)
-        # y of each persistent CTA where it does not fit in shared memory
+        # the streaming variant's packed taps, or (general) y of each
+        # persistent CTA where it does not fit in shared memory
         ws = torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
         err = lib.alphafive_resblock(
             bf16, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -230,4 +279,6 @@ def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
         raise RuntimeError(f"resblock kernel launch failed: CUDA error {err}")
     resblock_launches += 1
     variant_launches[ran] += 1
+    if ran == "streaming":   # the library packed the taps first
+        pack_launches += 1
     return out

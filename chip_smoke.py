@@ -78,7 +78,10 @@ pays. The plain versions wait on the host inside (the plain descent syncs
 once per step), so ``plain_ms`` stays eager CUDA-event time. Each select
 row also gives ``latency_bound_ms``: the launch floor plus its longest
 descent's steps times one L2 round trip, both measured here by
-``benchmarks/select_profile.py``.
+``benchmarks/select_profile.py``. The streaming resblock rows also give
+``before_ms``, the variant's time before its redesign, and the streaming
+variant's tap pack is held bit-equal to its plain twin at 64, 96 and 128
+channels (``pack_taps_vs_plain``).
 """
 
 from __future__ import annotations
@@ -140,6 +143,16 @@ SHAPES += [(b, 15, 64, torch.bfloat16, "resident")
            for b in TWO_RANK_BATCHES]
 SHAPES += [(4096, 19, 128, torch.bfloat16, "streaming"),
            (512, 19, 128, torch.bfloat16, "streaming")]
+# the streaming rows' device ms before the variant's redesign (the first
+# form: a cp.async ring, a block barrier a tap, x reloaded for the
+# residual), by this script on an H100 80GB HBM3 at 700 W: each row gives
+# it as before_ms beside its ms
+STREAMING_BEFORE_MS = {(2048, 19, 96): 0.7926, (2048, 19, 128): 1.1396,
+                       (256, 19, 64): 0.05447, (4096, 19, 128): 2.2171,
+                       (512, 19, 128): 0.3113}
+# the streaming variant's tap pack against its plain twin, bit for bit, at
+# every width the variant takes
+PACK_CHANNELS = (64, 96, 128)
 # the general variant (every shape the four fast ones refuse): JAX's own
 # test shapes (f32 5x5 x 16 and 7x7 x 32), tiny_test's board and width in
 # bf16 at a batch of 256, C not a multiple of 8 (48 and 20), then phase
@@ -392,7 +405,41 @@ def phase_kernel_vs_plain():
             2 * 2 * b * s * s * c * c * 9,
             2 * x.numel() * item + 2 * w1.numel() * item + 2 * 4 * c, dt)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        if kind == "streaming":   # the row's ms includes the tap pack
+            row["before_ms"] = STREAMING_BEFORE_MS[(b, s, c)]
         emit("kernel_vs_plain", **row, ok=True)
+        rows.append(row)
+    return rows
+
+
+def phase_pack_taps_vs_plain():
+    """The streaming variant's tap pack (``rb.pack_streaming_taps``)
+    against its plain twin, bit for bit, at each width the variant takes:
+    random bf16 [9, C, C] weights, timed beside the bytes it must move (two
+    inputs read, the packed taps written). No one PyTorch call computes
+    it: library_ms is null."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for c in PACK_CHANNELS:
+        w1, w2 = (torch.randn(9, c, c, generator=g, device="cuda")
+                  .bfloat16() for _ in range(2))
+        got = rb.pack_streaming_taps(w1, w2)
+        ref = rb.pack_streaming_taps_reference(w1, w2)
+        torch.cuda.synchronize()
+        row = dict(channels=c, shape=list(got.shape),
+                   bit_equal=torch.equal(got, ref),
+                   max_abs_err=(got.float() - ref.float()).abs().max()
+                   .item())
+        if not row["bit_equal"]:
+            emit("pack_taps_vs_plain", **row, ok=False)
+            raise AssertionError(f"tap pack disagrees: {row}")
+        timed(row, lambda: rb.pack_streaming_taps(w1, w2),
+              lambda: rb.pack_streaming_taps_reference(w1, w2))
+        row["bound_ms"], row["bound_by"] = bound(
+            0, 2 * got.numel() * got.element_size(), torch.bfloat16)
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_ms"] = None
+        emit("pack_taps_vs_plain", **row, ok=True)
         rows.append(row)
     return rows
 
@@ -477,7 +524,7 @@ def selfplay_run(cfg, params, stats, plies: int, repeats: int) -> dict:
                     res.root_value.clone()))
         last[:] = [state, action]
 
-    rb.resblock_launches = 0
+    rb.resblock_launches = rb.pack_launches = 0
     rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
     search_capped.backup_scatters = 0
     out, traj = selfplay_bench.run(
@@ -485,10 +532,12 @@ def selfplay_run(cfg, params, stats, plies: int, repeats: int) -> dict:
         params=params, batch_stats=stats, observe=observe,
         return_trajectory=True)
     launches, scatters = rb.resblock_launches, search_capped.backup_scatters
+    packs = rb.pack_launches
     pi_sum = traj.pi.sum(-1)
     return dict(out=out, traj=traj, rec=rec, plies=len(rec),
                 final=vector.step(cfg.env, *last), launches=launches,
-                variants=dict(rb.variant_launches), scatters=scatters,
+                variants=dict(rb.variant_launches), packs=packs,
+                scatters=scatters,
                 failed_checks=bad.item(),
                 pi_ok=bool(torch.isfinite(traj.pi).all()
                            and ((pi_sum - 1).abs() < 1e-5).all()))
@@ -519,8 +568,9 @@ def interval_runs(cfg, params, stats, plies: int, repeats: int,
 def run_summary(run: dict, blocks: int, variant: str) -> tuple[dict, list]:
     """A run's numbers for its phase line, and the checks it failed: the
     kernel launched in `variant` `blocks` times a forward, 51 forwards a
-    ply, the stats scatters a ply as the interval gives them, π finite
-    and summing to 1."""
+    ply, the tap pack once before each streaming launch, the stats
+    scatters a ply as the interval gives them, π finite and summing to
+    1."""
     interval = run["out"]["backup_interval"]
     plies = run["plies"]
     want = blocks * FORWARDS_PER_PLY * plies
@@ -528,12 +578,14 @@ def run_summary(run: dict, blocks: int, variant: str) -> tuple[dict, list]:
         ("failed_checks", run["failed_checks"] == 0),
         ("launches", run["launches"] == want),
         ("variant", run["variants"][variant] == run["launches"]),
+        ("pack", run["packs"] == run["variants"]["streaming"]),
         ("scatters", run["scatters"] == SCATTERS_PER_PLY[interval] * plies),
         ("pi", run["pi_ok"])) if not ok]
     return dict(env_steps_per_s=run["out"]["env_steps_per_s"],
                 seconds=run["out"]["seconds"], total_plies=plies,
                 resblock_launches=run["launches"], expected_launches=want,
                 variant_launches=run["variants"],
+                pack_launches=run["packs"],
                 backup_scatters_per_ply=run["scatters"] / plies,
                 failed_checks=run["failed_checks"]), fails
 
@@ -607,7 +659,7 @@ def phase_selfplay_renju(card: str):
     emit("capped_breakdown", **capped_breakdown(
         cfg, params, stats, RENJU_BREAKDOWN_PLIES, profile=True),
         nvidia_smi=nvidia_smi(), card=card, ok=True)
-    return runs[2]["launches"]
+    return runs[2]["launches"], runs[2]["packs"]
 
 
 def capped_breakdown(cfg, params, stats, plies: int,
@@ -2276,9 +2328,10 @@ def main() -> int:
     plib = phase_build()
     latency = phase_select_latency(plib)
     rows = phase_kernel_vs_plain()
+    pack_rows = phase_pack_taps_vs_plain()
     params, stats, saved_cfg = phase_bundle("15x15")
     rb_launches = phase_selfplay(params, stats, saved_cfg, card)
-    renju_launches = phase_selfplay_renju(card)
+    renju_launches, pack_launches = phase_selfplay_renju(card)
     params, stats, saved_cfg = phase_bundle("15x15_lowsim")
     lowsim_launches, traj, lowsim = phase_selfplay_lowsim(params, stats,
                                                           saved_cfg, card)
@@ -2318,6 +2371,7 @@ def main() -> int:
                                            r["channels"]) == GENERAL_ROW)
     sel_row = next(r for r in sel_rows if r["envs"] == 1
                    and r["case"] == "tree" and r["forced_k"] == 0.0)
+    pack_row = next(r for r in pack_rows if r["channels"] == 128)
     print(json.dumps({"kernels": [{
         "name": "fused_resblock", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/resblock.cu",
@@ -2352,6 +2406,15 @@ def main() -> int:
             "batch", "board", "channels", "variant", "max_abs_err", "ms",
             "host_us_per_call", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")}}, {
+        "name": "pack_streaming_taps", "route": "cuda",
+        "source": "alphafive_tpu_torch/csrc/resblock.cu",
+        "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
+        "launches": pack_launches, "launches_renju_19x19": pack_launches,
+        "max_abs_err": pack_row["max_abs_err"],
+        "ms": pack_row["ms"], "plain_ms": pack_row["plain_ms"],
+        "bound_ms": pack_row["bound_ms"], "bound_by": pack_row["bound_by"],
+        "library_ms": None, "host_us_per_call": pack_row["host_us_per_call"],
+        "channels": pack_row["channels"]}, {
         "name": "select_batch", "route": "cuda",
         "source": "alphafive_tpu_torch/csrc/select.cu",
         "replaces": "alphafive_tpu/ops/pallas_select.py:189",

@@ -138,9 +138,10 @@ def test_variant_budgets():
     assert rb._smem_bytes("tiled", 15, 15, 64, False) == (
         2 * 64 * 64 + 2 * 17 * 17 * 68) * 4
     # 19x19x128 bf16 streams a ring of 3 taps beside one buffer of 16
-    # channel planes of 433 rows (384 positions + 42 shifted + junk)
+    # channel planes of 433 rows (384 positions + 42 shifted + junk) and
+    # the ring's full and empty mbarriers, 8 B each a stage
     assert rb._smem_bytes("streaming", 19, 19, 128, True) == (
-        3 * 128 * 128 * 2 + 16 * 433 * 16)
+        3 * 128 * 128 * 2 + 16 * 433 * 16 + 2 * 3 * 8) == 209_200
     # f32 19x19 x 128: the general variant's ring and slabs (y, 192,192 B,
     # goes to the workspace)
     assert rb._smem_bytes("general", 19, 19, 128, False) == 66_656
@@ -181,3 +182,101 @@ def test_check_rejects_misaligned():
     b = torch.zeros(c)
     with pytest.raises(ValueError, match="16-byte"):
         rb._check(x, w, b, w, b)
+
+
+def streaming_source() -> tuple:
+    """csrc/resblock.cu, and its streaming namespace."""
+    import os
+    src = open(os.path.join(os.path.dirname(rb.__file__), os.pardir, "csrc",
+                            "resblock.cu")).read()
+    a = src.index("namespace streaming {")
+    return src, src[a:src.index("}  // namespace streaming", a)]
+
+
+@pytest.mark.parametrize("c", [64, 96, 128])
+def test_pack_streaming_taps_matches_kernel_map(c):
+    """The plain twin of the streaming variant's tap pack against a numpy
+    emulation of the kernel (one 16 B piece a thread, its tap, chunk and
+    row from the piece index as pack_taps computes them): every (t, cin,
+    cout) reads back W[t, cin, cout] at byte t·C²·2 + (cout / 8)·C·16 +
+    cin·16 + (cout % 8)·2, and each tap is one contiguous run of C²·2
+    bytes, the bulk copy the kernel makes of it."""
+    rng = np.random.default_rng(c)
+    w = rng.standard_normal((18, c, c)).astype(np.float32)
+    w1, w2 = (torch.from_numpy(w[k * 9:(k + 1) * 9]).bfloat16()
+              for k in (0, 1))
+    got = rb.pack_streaming_taps(w1, w2)        # CPU: the plain twin
+    assert got.shape == (18, c // 8, c, 8) and got.is_contiguous()
+    flat = got.view(torch.int16).numpy().reshape(-1)
+    src = torch.cat([w1, w2]).view(torch.int16).numpy().reshape(-1, 8)
+    per_tap = c * c // 8
+    i = np.arange(18 * per_tap)
+    t = i // per_tap
+    j, cin = (i - t * per_tap) // c, (i - t * per_tap) % c
+    np.testing.assert_array_equal(
+        flat.reshape(-1, 8), src[t * per_tap + cin * (c // 8) + j])
+    tt, ci, co = np.meshgrid(np.arange(18), np.arange(c), np.arange(c),
+                             indexing="ij")
+    byte = tt * c * c * 2 + co // 8 * c * 16 + ci * 16 + co % 8 * 2
+    np.testing.assert_array_equal(
+        flat[byte // 2], torch.cat([w1, w2]).view(torch.int16).numpy())
+    for k in range(18):      # tap k: bytes [k·C²·2, (k + 1)·C²·2)
+        assert got[k].data_ptr() - got.data_ptr() == k * c * c * 2
+        assert torch.equal(got[k].view(torch.int16).reshape(-1),
+                           got.view(torch.int16).reshape(-1)[
+                               k * c * c:(k + 1) * c * c])
+        assert set(np.unique(byte[k] // (c * c * 2))) == {k}
+
+
+@pytest.mark.parametrize("b,size,c", [(4096, 19, 128), (512, 19, 128),
+                                      (2048, 19, 96), (256, 19, 64),
+                                      (1, 19, 128)])
+def test_streaming_workspace_matches_source(b, size, c):
+    """The streaming variant's workspace holds both convs' packed taps,
+    18·C²·2 bytes whatever the batch: alphafive_resblock_workspace's
+    formula and its tap count parsed from csrc/resblock.cu, against the
+    wrapper's mirror."""
+    import re
+    src, body = streaming_source()
+    taps = int(re.search(r"constexpr int kTaps = (\d+);", body).group(1))
+    assert taps == 18
+    fn = src[src.index("long long workspace_bytes("):]
+    formula = re.search(r"if \(variant == kStreaming\) return \(long long\)"
+                        r"streaming::kTaps((?: \* \w+)+);", fn).group(1)
+    want = eval("kTaps" + formula, {}, dict(kTaps=taps, c=c))
+    assert want == 18 * c * c * 2
+    assert rb.variant(torch.bfloat16, size, size, c) == "streaming"
+    assert rb._workspace_bytes(b, size, size, c, True) == want
+    assert rb._workspace_bytes(0, size, size, c, True) == 0
+
+
+def test_streaming_smem_matches_source():
+    """The mirror's streaming shared memory is the source's smem_bytes: the
+    ring of kStages taps, the buffer, and a full and an empty mbarrier a
+    stage; it fits at every width the variant takes on a 19x19 board."""
+    import re
+    _, body = streaming_source()
+    stages = int(re.search(r"constexpr int kStages = (\d+);",
+                           body).group(1))
+    assert re.search(r"return kStages \* c \* c \* 2 \+ c / 8 \* "
+                     r"buffer_rows\(w\) \* 16 \+ 2 \* kStages \* 8;", body)
+    for c in rb.CHANNELS:
+        want = stages * c * c * 2 + c // 8 * 433 * 16 + 2 * stages * 8
+        assert rb._smem_bytes("streaming", 19, 19, c, True) == want
+        assert want <= rb._SMEM_LIMIT
+
+
+def test_pack_wrapper_refuses_and_counts_no_cpu_launch():
+    """On CPU tensors neither the block nor the pack counts a launch; on
+    other devices the pack raises, as the block does."""
+    rb.pack_launches = 0
+    x = torch.zeros(2, 19, 19, 64, dtype=torch.bfloat16)
+    w = torch.zeros(9, 64, 64, dtype=torch.bfloat16)
+    b = torch.zeros(64)
+    assert rb.variant(x.dtype, 19, 19, 64) == "streaming"
+    rb.fused_resblock(x, w, b, w, b)
+    rb.pack_streaming_taps(w, w)
+    assert rb.pack_launches == 0
+    m = torch.zeros(9, 64, 64, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(RuntimeError):
+        rb.pack_streaming_taps(m, m)
