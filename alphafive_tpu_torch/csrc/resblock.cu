@@ -19,8 +19,8 @@
 // A 3x3 'same' conv is nine shifted [HW, C] x [C, C] products, and what
 // feeds them is shared memory.
 //
-// Four kernels; the host picks one per shape with resblock_variant()
-// (ops/resblock.py::variant mirrors it):
+// Five kernels; the host picks one per shape and batch with
+// resblock_variant() (ops/resblock.py::variant mirrors it):
 //
 //   resident (bf16, C = 64, boards up to 15x15): the self-play path.
 //     * Persistent: one 256-thread CTA per SM walks samples b, b + grid, ...
@@ -149,12 +149,50 @@
 //       barrier, 24 ldmatrix.x4 (12 KB of shared memory a warp) and 64
 //       mma.sync per warp per K step (benchmarks/resblock_profile.py
 //       --ablate barrier / mma / copies / epilogue).
+//   split (bf16, C a multiple of 8, batches below kSplitBelow* of the
+//     variant the shape takes otherwise): the small batches of cli play,
+//     cli eval and the ladder eval (1 to 16 samples).
+//     * What bounds a batch-1 block: not the card's rates (1 x 19x19 x 128
+//       is 0.21 GFLOP and 0.78 MB: 0.23 us) but latency, on one SM. The
+//       persistent kernels give a CTA whole samples, so at batch 1 one SM
+//       of 132 stages every tap and runs every product: 17,930 of the
+//       resident kernel's 30,047 cycles stage its 147 KB of taps; general
+//       runs 1 x 15x15 x 256 (531 MFLOP) in 517,276 cycles
+//       (benchmarks/resblock_profile.py, batch-1 stamps).
+//     * One sample a cluster of K = 2..16 CTAs (cluster_size: enough for
+//       the sample's tiles, halved while the batch's clusters would hold
+//       more than half the SMs: a cluster's CTAs share a GPC, and the H100
+//       runs 7 clusters of 16 at once, 15 of 8). general's implicit GEMM
+//       (mma.sync from ldmatrix, the cp.async weight ring, slabs) in tiles
+//       of 64 pixels x 64 channels, tile t to rank t mod K, so each SM
+//       streams only its tiles' taps from L2 and runs a K-th of the
+//       products.
+//     * Conv 1's y tiles stay in their CTA's shared memory, rounded to
+//       bf16 where the Pallas kernel rounds, in a whole-sample y laid out
+//       alike in every rank. After a release/acquire cluster barrier each
+//       rank gathers the rows its conv 2 tiles read (its bands and the w
+//       + 1 rows either side, all C channels) from the ranks that wrote
+//       them, 16 B at a time over distributed shared memory (mapa,
+//       ld.shared::cluster), then runs conv 2 in place with the residual
+//       from x. A second barrier's arrive follows the gather and its wait
+//       ends the kernel, so no CTA exits while a peer reads its y. Where y
+//       of a sample does not fit (240x240 x 72: 8.3 MB) it goes through
+//       the workspace, the cluster barrier ordering its stores.
+//     * What is left is the K loop's latency: ~1,100 cycles a step of 16
+//       mma.sync a warp (a 64 x 64 x 64 tile step), of which the products
+//       and their ldmatrix ~470, the block barrier ~200, the copies ~150.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <map>
+#include <mutex>
+#include <set>
+#include <tuple>
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -166,7 +204,8 @@ enum Variant {
   kStreaming = 0,
   kResident = 1,
   kTiled = 2,
-  kGeneral = 4
+  kGeneral = 4,
+  kSplit = 5
 };
 
 // ---------------------------------------------------------------------------
@@ -627,6 +666,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t xa = smem_u32(xs), ya = smem_u32(ys);
   if (xa & 1023) __trap();  // the weights' swizzle needs 1024 B alignment
 
+  // launch stamp: 30
   Offsets<N> off;
   off.init(h, w, plane);
   // piece t of sample s's x, cp.async'd into x's buffer
@@ -697,6 +737,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int last = blockIdx.x + (nb - 1 - blockIdx.x) / gridDim.x * gridDim.x;
 #pragma unroll
   for (int t = 0; t < kPieces; ++t) copy_out(last, t);
+  // launch stamp: 31
 }
 
 }  // namespace resident
@@ -1003,6 +1044,7 @@ __global__ void __launch_bounds__(kThreadsS, 1)
   using S = Shape<C>;
   constexpr int kTap = C * C * 2;
   extern __shared__ __align__(128) unsigned char smem_streaming[];
+  // launch stamp: 30
   unsigned char* bufp = smem_streaming + kStages * kTap;
   const uint32_t stages = smem_u32(smem_streaming), buf = smem_u32(bufp);
   const int hw = h * w, pitch = w + 1, plane = buffer_rows(w) * 16;
@@ -1134,6 +1176,7 @@ __global__ void __launch_bounds__(kThreadsS, 1)
     }
     // stamp: 22
   }
+  // launch stamp: 31
 }
 
 }  // namespace streaming
@@ -1176,17 +1219,18 @@ __host__ __device__ constexpr int ring_bytes(int elem) {
 // the 8 rows of one ldmatrix stay in 8 bank groups (see conv).
 constexpr int kZeroRows = 3;
 // An A slab: BK channels (rows padded by 16 B) of the pixel rows one M
-// tile's taps reach, then the zero rows. span 3: the rows of all three tap
-// rows (BM + 2w + 2, at most h*w), one slab for the 9 taps of a channel
-// block; span 1, for boards too wide for that: one tap row's BM + 2 rows,
-// a slab for each 3 taps.
-__host__ __device__ constexpr int slab_rows(int h, int w, int span,
-                                            int elem) {
-  return imin(bm(elem) + (span == 3 ? 2 * w + 2 : 2), h * w) + kZeroRows;
+// tile of m pixels (bm(elem); the split variant's 64) reaches with its
+// taps, then the zero rows. span 3: the rows of all three tap rows (m +
+// 2w + 2, at most h*w), one slab for the 9 taps of a channel block; span
+// 1, for boards too wide for that: one tap row's m + 2 rows, a slab for
+// each 3 taps.
+__host__ __device__ constexpr int slab_rows(int h, int w, int span, int elem,
+                                            int m) {
+  return imin(m + (span == 3 ? 2 * w + 2 : 2), h * w) + kZeroRows;
 }
-__host__ __device__ constexpr int slab_bytes(int h, int w, int span,
-                                             int elem) {
-  return slab_rows(h, w, span, elem) * (bk(elem) + chunk(elem)) * elem;
+__host__ __device__ constexpr int slab_bytes(int h, int w, int span, int elem,
+                                             int m) {
+  return slab_rows(h, w, span, elem, m) * (bk(elem) + chunk(elem)) * elem;
 }
 // Slabs: two (one read, the next landing), or one where a tile reads a
 // single slab (span 3 and C <= BK) and conv 2's residual tile fits in it.
@@ -1195,12 +1239,12 @@ __host__ __device__ constexpr int slab_slots(int c, int span, int elem) {
 }
 // The ring and the slabs.
 __host__ __device__ constexpr int base_bytes(int h, int w, int c, int span,
-                                             int elem) {
+                                             int elem, int m) {
   return ring_bytes(elem) +
-         slab_slots(c, span, elem) * slab_bytes(h, w, span, elem);
+         slab_slots(c, span, elem) * slab_bytes(h, w, span, elem, m);
 }
-__host__ __device__ constexpr int span(int h, int w, int c, int elem) {
-  return base_bytes(h, w, c, 3, elem) <= kSmemLimit ? 3 : 1;
+__host__ __device__ constexpr int span(int h, int w, int c, int elem, int m) {
+  return base_bytes(h, w, c, 3, elem, m) <= kSmemLimit ? 3 : 1;
 }
 // y's row: C rounded up to 8 chunks, plus one chunk. A row of 1 mod 8
 // 16 B chunks puts 8 consecutive rows of one ldmatrix (or of one float4
@@ -1218,33 +1262,46 @@ __host__ __device__ constexpr long long y_bytes(int h, int w, int c,
 }
 
 // y of one sample in shared memory beside the ring and slabs, or not
-__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem) {
-  return base_bytes(h, w, c, span(h, w, c, elem), elem) +
+__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem,
+                                             int m) {
+  return base_bytes(h, w, c, span(h, w, c, elem, m), elem, m) +
              y_bytes(h, w, c, elem) <=
          kSmemLimit;
 }
 
-__host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem) {
-  return base_bytes(h, w, c, span(h, w, c, elem), elem) +
-         (y_in_smem(h, w, c, elem) ? (int)y_bytes(h, w, c, elem) : 0);
+__host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem,
+                                             int m) {
+  return base_bytes(h, w, c, span(h, w, c, elem, m), elem, m) +
+         (y_in_smem(h, w, c, elem, m) ? (int)y_bytes(h, w, c, elem) : 0);
 }
 
-// The tiles of element type T.
-template <typename T>
+// The same for the general variant's tiles of bm(elem) pixels.
+__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem) {
+  return y_in_smem(h, w, c, elem, bm(elem));
+}
+__host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem) {
+  return smem_bytes(h, w, c, elem, bm(elem));
+}
+
+// The tiles of element type T, kTileM pixels by BN channels (bf16: any
+// multiple of 64; f32: bm(4) only).
+template <typename T, int kTileM = bm(sizeof(T))>
 struct Tile {
   static constexpr int kElem = sizeof(T), kChunk = 16 / kElem;
   static constexpr int kBK = bk(kElem), kStages = stages(kElem);
-  static constexpr int kWarpM = warp_m(kElem), kBM = bm(kElem);
+  static constexpr int kBM = kTileM, kWarpM = kBM / kWarpsM;
   static constexpr int kAStride = kBK + kChunk, kBStride = BN + kChunk;
   static constexpr int kRStride = BN + kChunk;  // conv 2's residual tile
   static constexpr int kBElems = kBK * kBStride;  // one ring stage
   static constexpr int kACols = kBK / kChunk;  // 16 B chunks of a slab row
   static constexpr int kBCols = BN / kChunk;
   static constexpr int kBChunks = kBK * kBCols / kThreads;  // per thread
-  // A rows one lane reads: 4 m16 fragments (bf16) or 4 pixels (f32)
-  static constexpr int kRows = 4;
-  static constexpr int kAcc = kElem == 2 ? 64 : 32;  // accumulators
+  // A rows one lane reads: the warp's m16 fragments (bf16: 4 at BM =
+  // 256, 1 at 64) or 4 pixels (f32)
+  static constexpr int kRows = kElem == 2 ? kWarpM / 16 : 4;
+  static constexpr int kAcc = kElem == 2 ? 16 * kRows : 32;  // accumulators
   static_assert(kStages * kBElems * kElem == ring_bytes(kElem), "ring");
+  static_assert(kElem == 2 ? kWarpM % 16 == 0 : kBM == bm(kElem), "tile");
 };
 
 template <typename T>
@@ -1311,16 +1368,16 @@ struct View {
 // The residual (conv 2) is x in device memory, or its tile in shared
 // memory. The bias is read once, and every residual load is issued
 // before the first is used.
-template <typename T, bool kSecond>
-__device__ __forceinline__ void epilogue(const float (&acc)[Tile<T>::kAcc],
-                                         T* dst, int ld,
-                                         const float* __restrict__ bias,
-                                         View<const T> res, int p0, int ch0,
-                                         int hw, int c) {
+template <typename T, int kTileM, bool kSecond>
+__device__ __forceinline__ void epilogue(
+    const float (&acc)[Tile<T, kTileM>::kAcc], T* dst, int ld,
+    const float* __restrict__ bias, View<const T> res, int p0, int ch0,
+    int hw, int c) {
   constexpr bool kMma = sizeof(T) == 2;
   constexpr int kRun = kMma ? 2 : 4;   // channels of a run
   constexpr int kRuns = kMma ? 4 : 2;  // runs of the lane at a pixel
-  constexpr int kPix = kMma ? 8 : 4;   // pixels of the lane
+  // pixels of the lane: two a fragment (bf16)
+  constexpr int kPix = kMma ? 2 * Tile<T, kTileM>::kRows : 4;
   const int lane = threadIdx.x & 31;
   // bf16 fragment (i, j): pixels 16 i + g (+ 8), channels 8 j + 2 t (+ 1);
   // f32: pixels tr + 8 i, channels 4 tc + 16 hf + [0, 4)
@@ -1406,20 +1463,22 @@ __device__ __forceinline__ void epilogue(const float (&acc)[Tile<T>::kAcc],
 // with A the sample's activations [h*w][c], read in place by the products:
 // from y in shared memory (kDirect: conv 2 where y fits; stride y_stride,
 // zero rows after it), or from slabs copied out of device memory (src: x,
-// or y in the workspace). Output tiles of BM pixels x BN channels, pixels
-// outer; each runs ceil(C / BK) channel blocks x 9 taps, one K step each,
-// one block barrier a step. The weights of step s + stages - 1 are copied
-// at step s; the next slab in parts over the first steps of a slab's turn
-// (cp.async groups complete in order, so each part has stages - 1 steps
-// to land). kDirect leaves the slabs free: conv 2's residual tile lands
-// there during the K loop. b: the sample (read by
+// or y in the workspace). Output tiles of kTileM pixels x BN channels,
+// numbered pixels outer; this CTA runs tiles first, first + step, ... (the
+// general variant all, from 0 by 1; a rank of the split variant's cluster
+// every ranks-th). Each runs ceil(C / BK) channel blocks x 9 taps, one K
+// step each, one block barrier a step. The weights of step s + stages - 1
+// are copied at step s; the next slab in parts over the first steps of a
+// slab's turn (cp.async groups complete in order, so each part has stages
+// - 1 steps to land). kDirect leaves the slabs free: conv 2's residual
+// tile lands there during the K loop. b: the sample (read by
 // benchmarks/resblock_profile.py's stamps).
-template <typename T, bool kSecond, bool kDirect>
+template <typename T, int kTileM, bool kSecond, bool kDirect>
 __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
                      const float* __restrict__ bias, const T* x, T* dst,
                      int ld, int h, int w, int c, int span, T* ring, T* slabs,
-                     int b) {
-  using G = Tile<T>;
+                     int b, int first, int step) {
+  using G = Tile<T, kTileM>;
   constexpr bool kMma = sizeof(T) == 2;
   constexpr int BK = G::kBK;
   static_assert(2 * G::kAStride >= G::kRStride, "the residual tile fits");
@@ -1430,7 +1489,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
   const int hw = h * w, kcb = (c + BK - 1) / BK, steps = 9 * kcb;
   const bool vec = c % G::kChunk == 0;  // 16 B copies (cp.async)
   const int a_ld = kDirect ? y_stride(c, G::kElem) : G::kAStride;
-  const int srows = slab_rows(h, w, span, G::kElem);
+  const int srows = slab_rows(h, w, span, G::kElem, G::kBM);
   const int zrow = kDirect ? hw : srows - kZeroRows;  // the first zero row
   // steps over which the next slab is copied: each part lands within
   // stages - 1 steps, before the slab's turn
@@ -1443,7 +1502,10 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
   const int acol = tid % G::kACols * G::kChunk, arow0 = tid / G::kACols;
   const int bcol = tid % G::kBCols * G::kChunk, brow0 = tid / G::kBCols;
 
-  for (int m0 = 0; m0 < hw; m0 += G::kBM) {
+  const int ntn = (c + BN - 1) / BN;  // channel tiles
+  const int tiles = (hw + G::kBM - 1) / G::kBM * ntn;
+  for (int tile = first; tile < tiles; tile += step) {
+    const int m0 = tile / ntn * G::kBM, n0 = tile % ntn * BN;
     // the lane's A rows: pixel p's offset in A's buffer, which of the 9
     // taps lie on the board (bit t; none past the sample), and where in
     // the zero rows it reads off the board: chunk (p - zrow) mod 8, plus
@@ -1478,7 +1540,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
         stage_chunk(sl + row * G::kAStride, from + row * c, src, true,
                     c - ch, vec);
     };
-    for (int n0 = 0; n0 < c; n0 += BN) {
+    {
       // warps whose whole tile lies past the sample or past C only copy
       const bool active = m0 + wm0 < hw && n0 + wn0 < c;
       float acc[G::kAcc];
@@ -1513,7 +1575,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
       };
 
       __syncthreads();  // every warp is done with the last tile's smem
-      if (!kDirect && m0 == 0 && n0 == 0) {
+      if (!kDirect && tile == first) {
         // the slabs' zero rows (conv 2's residual tile may have covered
         // them); the barrier of step 0 publishes them
         constexpr int kZero = kZeroRows * G::kAStride;
@@ -1567,11 +1629,11 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
             // ldmatrix, B by ldmatrix .trans, the next k16's fragments
             // loaded under this one's MMAs
             const int nk = imin(BK, c - cb * BK + 15) / 16;
-            uint32_t a[2][4][4], bf[2][4][2];
+            uint32_t a[2][G::kRows][4], bf[2][4][2];
             auto fragments = [&](int kk, int buf) {
               const int ka = 16 * kk + (lane >> 4) * 8;
 #pragma unroll
-              for (int i = 0; i < 4; ++i)
+              for (int i = 0; i < G::kRows; ++i)
                 ldmatrix_x4(a[buf][i], smem_u32(ab + aoff[i] + ka));
 #pragma unroll
               for (int jn = 0; jn < 2; ++jn) {
@@ -1592,7 +1654,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
               if (kk + 1 < BK / 16 && kk + 1 < nk)
                 fragments(kk + 1, (kk + 1) & 1);
 #pragma unroll
-              for (int i = 0; i < 4; ++i)
+              for (int i = 0; i < G::kRows; ++i)
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
                   // ablate: mma
@@ -1646,7 +1708,8 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
           kDirect ? View<const T>{slabs, G::kRStride, m0, n0}
                   : View<const T>{x, c, 0, 0};
       // ablate: epilogue
-      epilogue<T, kSecond>(acc, dst, ld, bias, res, m0 + wm0, n0 + wn0, hw, c);
+      epilogue<T, kTileM, kSecond>(acc, dst, ld, bias, res, m0 + wm0,
+                                   n0 + wn0, hw, c);
     }
   }
 }
@@ -1658,13 +1721,15 @@ __global__ void __launch_bounds__(kThreads, 1)
            const float* __restrict__ b2, T* __restrict__ out, T* workspace,
            int nb, int h, int w, int c) {
   extern __shared__ __align__(16) unsigned char smem_general[];
+  // launch stamp: 30
   using G = Tile<T>;
-  constexpr int kElem = sizeof(T);
-  const int sp = span(h, w, c, kElem), srows = slab_rows(h, w, sp, kElem);
+  constexpr int kElem = sizeof(T), BM = G::kBM;
+  const int sp = span(h, w, c, kElem, BM);
+  const int srows = slab_rows(h, w, sp, kElem, BM);
   T* ring = reinterpret_cast<T*>(smem_general);
   T* slabs = ring + G::kStages * G::kBElems;
   const size_t sample = (size_t)h * w * c;
-  if (y_in_smem(h, w, c, kElem)) {
+  if (y_in_smem(h, w, c, kElem, BM)) {
     T* ys = slabs + slab_slots(c, sp, kElem) * srows * G::kAStride;
     // the padding channels and the zero rows are read, never written; the
     // first tile's barrier publishes the zeros
@@ -1674,68 +1739,324 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int b = blockIdx.x; b < nb; b += gridDim.x) {
       const T* xb = x + b * sample;
       // stamp: 0
-      conv<T, false, false>(xb, nullptr, w1, b1, xb, ys, ld, h, w, c, sp,
-                            ring, slabs, b);
+      conv<T, BM, false, false>(xb, nullptr, w1, b1, xb, ys, ld, h, w, c,
+                                sp, ring, slabs, b, 0, 1);
       // stamp: 2
-      conv<T, true, true>(nullptr, ys, w2, b2, xb, out + b * sample, c, h, w,
-                          c, sp, ring, slabs, b);
+      conv<T, BM, true, true>(nullptr, ys, w2, b2, xb, out + b * sample, c,
+                              h, w, c, sp, ring, slabs, b, 0, 1);
       // stamp: 4
     }
+    // launch stamp: 31
     return;
   }
   T* ys = workspace + blockIdx.x * sample;  // this CTA's y, stride C
   for (int b = blockIdx.x; b < nb; b += gridDim.x) {
     const T* xb = x + b * sample;
-    conv<T, false, false>(xb, nullptr, w1, b1, xb, ys, c, h, w, c, sp, ring,
-                          slabs, b);
-    conv<T, true, false>(ys, nullptr, w2, b2, xb, out + b * sample, c, h, w,
-                         c, sp, ring, slabs, b);
+    conv<T, BM, false, false>(xb, nullptr, w1, b1, xb, ys, c, h, w, c, sp,
+                              ring, slabs, b, 0, 1);
+    conv<T, BM, true, false>(ys, nullptr, w2, b2, xb, out + b * sample, c, h,
+                             w, c, sp, ring, slabs, b, 0, 1);
   }
+  // launch stamp: 31
 }
 
 }  // namespace general
 
 // ---------------------------------------------------------------------------
+// split: bf16, one sample spread over the CTAs of a thread-block cluster
+
+namespace split {
+
+using T = __nv_bfloat16;
+constexpr int BM = 64;           // pixels of an output tile
+constexpr int kClusterMax = 16;  // CTAs of a cluster (above 8: non-portable)
+
+// Output tiles of one sample: bands of BM pixels x 64-channel groups,
+// dealt to the cluster's ranks in turn (tile t to rank t mod K).
+__host__ __device__ constexpr int tiles(int h, int w, int c) {
+  return (h * w + BM - 1) / BM * ((c + general::BN - 1) / general::BN);
+}
+__host__ __device__ constexpr bool y_in_smem(int h, int w, int c) {
+  return general::y_in_smem(h, w, c, 2, BM);
+}
+__host__ __device__ constexpr int smem_bytes(int h, int w, int c) {
+  return general::smem_bytes(h, w, c, 2, BM);
+}
+// The shapes it takes: whole 16 B chunks of channels, so that y moves
+// between ranks 16 B at a time.
+__host__ __device__ constexpr bool fits(int h, int w, int c) {
+  return c % 8 == 0 && smem_bytes(h, w, c) <= kSmemLimit;
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_ranks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_index() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+// Every thread of the cluster arrives, releasing its writes, then waits
+// for all, acquiring theirs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// 16 B of rank `rank`'s shared memory at this CTA's shared address `addr`
+// (distributed shared memory).
+__device__ __forceinline__ uint4 ld_peer16(uint32_t addr, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
+
+// y's rows [lo, hi), all C channels, into this CTA's copy of y: every 16
+// B chunk that another rank's conv 1 tile wrote comes from that rank's
+// copy, at the same offset (every rank lays out its shared memory alike).
+// kBatch loads in flight a thread.
+template <int kTileM>
+__device__ void gather(T* ys, int ld, int lo, int hi, int c, int rank,
+                       int ranks) {
+  constexpr int kBatch = 4;
+  const int cpr = c / 8, ntn = (c + general::BN - 1) / general::BN;
+  const int n = (hi - lo) * cpr;
+  const uint32_t base = smem_u32(ys);
+  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
+    uint4 v[kBatch];
+    uint32_t off[kBatch];
+    bool take[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * kThreads;
+      const int p = lo + i / cpr, j = i % cpr;  // pixel, channel chunk
+      const int owner = (p / kTileM * ntn + j / 8) % ranks;
+      take[k] = i < n && owner != rank;
+      off[k] = (uint32_t)(p * ld + j * 8) * 2;
+      if (take[k]) v[k] = ld_peer16(base + off[k], owner);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (take[k])
+        *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(ys) +
+                                  off[k]) = v[k];
+  }
+}
+
+// One sample a cluster: cluster b runs sample b, its rank r the tiles r,
+// r + K, ... of each conv (general::conv, tiles of kTileM pixels).
+template <int kTileM>
+__global__ void __launch_bounds__(kThreads, 1)
+    kernel(const T* __restrict__ x, const T* __restrict__ w1,
+           const float* __restrict__ b1, const T* __restrict__ w2,
+           const float* __restrict__ b2, T* __restrict__ out, T* workspace,
+           int h, int w, int c) {
+  extern __shared__ __align__(16) unsigned char smem_split[];
+  // launch stamp: 30
+  using G = general::Tile<T, kTileM>;
+  const int rank = cluster_rank(), ranks = cluster_ranks();
+  const int b = cluster_index();  // the sample
+  const int sp = general::span(h, w, c, 2, kTileM);
+  const int srows = general::slab_rows(h, w, sp, 2, kTileM);
+  T* ring = reinterpret_cast<T*>(smem_split);
+  T* slabs = ring + G::kStages * G::kBElems;
+  const size_t sample = (size_t)h * w * c;
+  const T* xb = x + b * sample;
+  T* ob = out + b * sample;
+  if (general::y_in_smem(h, w, c, 2, kTileM)) {
+    T* ys = slabs + general::slab_slots(c, sp, 2) * srows * G::kAStride;
+    // the padding channels and the zero rows are read, never written; so
+    // are the rows this rank neither writes nor gathers
+    for (int i = threadIdx.x; i < general::y_bytes(h, w, c, 2) / 16;
+         i += kThreads)
+      reinterpret_cast<uint4*>(ys)[i] = make_uint4(0, 0, 0, 0);
+    const int ld = general::y_stride(c, 2);
+    // stamp: 0
+    general::conv<T, kTileM, false, false>(xb, nullptr, w1, b1, xb, ys, ld,
+                                           h, w, c, sp, ring, slabs, b, rank,
+                                           ranks);
+    // stamp: 2
+    cluster_arrive();
+    cluster_wait();  // every rank's y tiles written
+    // stamp: 5
+    // each band this rank's conv 2 tiles cover, with the w + 1 rows above
+    // and below that its taps reach
+    const int hw = h * w, ntn = (c + general::BN - 1) / general::BN;
+    const int count = (hw + kTileM - 1) / kTileM * ntn;
+    for (int t = rank, last = -1; t < count; t += ranks) {
+      const int band = t / ntn;
+      if (band == last) continue;
+      last = band;
+      gather<kTileM>(ys, ld, max(0, band * kTileM - w - 1),
+                     min(hw, (band + 1) * kTileM + w + 1), c, rank, ranks);
+    }
+    // done reading the peers' y; conv 2's first block barrier publishes
+    // the gathered rows to every warp
+    cluster_arrive();
+    // stamp: 6
+    general::conv<T, kTileM, true, true>(nullptr, ys, w2, b2, xb, ob, c, h,
+                                         w, c, sp, ring, slabs, b, rank,
+                                         ranks);
+    // stamp: 4
+    cluster_wait();  // no peer reads this CTA's y any more
+  } else {
+    // y of the sample in the workspace: the cluster barrier orders every
+    // rank's y stores before any rank's slab copies (cp.async.cg reads L2)
+    T* ys = workspace + b * sample;
+    general::conv<T, kTileM, false, false>(xb, nullptr, w1, b1, xb, ys, c, h,
+                                           w, c, sp, ring, slabs, b, rank,
+                                           ranks);
+    __threadfence();
+    cluster_arrive();
+    cluster_wait();
+    general::conv<T, kTileM, true, false>(ys, nullptr, w2, b2, xb, ob, c, h,
+                                          w, c, sp, ring, slabs, b, rank,
+                                          ranks);
+  }
+  // launch stamp: 31
+}
+
+}  // namespace split
+
+// ---------------------------------------------------------------------------
 // host side
 
-int resblock_variant(int dtype, int h, int w, int c) {
-  if ((dtype != 0 && dtype != 1) || h < 1 || w < 1 || c < 1) return kRefused;
-  const bool fast = c == 64 || c == 96 || c == 128;  // instantiated widths
-  if (dtype == 1) {
-    if (c == 64 && resident::fits(h, w)) return kResident;
-    if (fast && streaming::fits(h, w, c)) return kStreaming;
-    return kGeneral;
-  }
-  if (c == 64 && h * w <= 256 && tiled::smem_bytes(h, w) <= kSmemLimit)
-    return kTiled;
-  return kGeneral;
+// The batch below which a bf16 block runs split rather than the variant
+// that takes its shape otherwise (chip_smoke.py's kernel_vs_plain rows:
+// split faster than that variant at every batch below; mirrored by
+// ops/resblock.py's SPLIT_BELOW).
+constexpr int kSplitBelowResident = 17;
+constexpr int kSplitBelowStreaming = 5;
+constexpr int kSplitBelowGeneral = 2;
+
+// Multiprocessors of the current device, read once a device.
+int sm_count() {
+  static int cached[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && cached[dev]) return cached[dev];
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 64) cached[dev] = sms;
+  return sms;
 }
 
 int persistent_grid(int b) {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int sms = sm_count();
   return b < sms ? b : sms;
 }
 
-// Bytes of device workspace a batch of b needs: the streaming variant's
-// packed taps; the general variant's y of one sample per CTA where it does
-// not fit in shared memory; else 0.
-long long workspace_bytes(int dtype, int b, int h, int w, int c) {
+// CTAs of the split variant's cluster: enough for one sample's tiles (a
+// power of two from 2 to kClusterMax), halved while a batch's clusters
+// would hold more than half the SMs (down to 2). A cluster's CTAs share
+// one GPC, at one a SM where shared memory passes half an SM's, so at
+// most half the SMs' worth of clusters of 16 run at once (H100: under 8
+// clusters of 16; alphafive_resblock_active_clusters).
+int cluster_size(int b, int h, int w, int c) {
+  const int t = split::tiles(h, w, c);
+  int k = 2;
+  while (k < split::kClusterMax && k < t) k *= 2;
+  while (k > 2 && (long long)b * k > sm_count() / 2) k /= 2;
+  return k;
+}
+
+// Whether `variant` takes this shape (alphafive_resblock_as launches a
+// variant by name only where it does).
+bool takes(int variant, int dtype, int h, int w, int c) {
+  if ((dtype != 0 && dtype != 1) || h < 1 || w < 1 || c < 1) return false;
+  const bool fast = c == 64 || c == 96 || c == 128;  // instantiated widths
+  switch (variant) {
+    case kResident:
+      return dtype == 1 && c == 64 && resident::fits(h, w);
+    case kStreaming:
+      return dtype == 1 && fast && streaming::fits(h, w, c);
+    case kTiled:
+      return dtype == 0 && c == 64 && h * w <= 256 &&
+             tiled::smem_bytes(h, w) <= kSmemLimit;
+    case kGeneral:
+      return true;
+    case kSplit:
+      return dtype == 1 && split::fits(h, w, c);
+  }
+  return false;
+}
+
+int resblock_variant(int dtype, int b, int h, int w, int c) {
+  if ((dtype != 0 && dtype != 1) || h < 1 || w < 1 || c < 1) return kRefused;
+  int v = kGeneral;
+  if (dtype == 1) {
+    if (takes(kResident, dtype, h, w, c))
+      v = kResident;
+    else if (takes(kStreaming, dtype, h, w, c))
+      v = kStreaming;
+    const int below = v == kResident    ? kSplitBelowResident
+                      : v == kStreaming ? kSplitBelowStreaming
+                                        : kSplitBelowGeneral;
+    // a sample of one tile leaves a cluster nothing to split
+    if (b >= 1 && b < below && split::tiles(h, w, c) >= 2 &&
+        takes(kSplit, dtype, h, w, c))
+      return kSplit;
+    return v;
+  }
+  if (takes(kTiled, dtype, h, w, c)) return kTiled;
+  return kGeneral;
+}
+
+// Bytes of device workspace `variant` needs for a batch of b: the
+// streaming variant's packed taps; y of each sample (split) or of one
+// sample per CTA (general) where it does not fit in shared memory; else 0.
+long long workspace_bytes(int variant, int dtype, int b, int h, int w,
+                          int c) {
   if (b < 1) return 0;
-  const int variant = resblock_variant(dtype, h, w, c);
   if (variant == kStreaming) return (long long)streaming::kTaps * c * c * 2;
+  if (variant == kSplit)
+    return split::y_in_smem(h, w, c) ? 0 : (long long)b * h * w * c * 2;
   if (variant != kGeneral) return 0;
   const int elem = dtype == 1 ? 2 : 4;
   if (general::y_in_smem(h, w, c, elem)) return 0;
   return (long long)persistent_grid(b) * h * w * c * elem;
 }
 
+// Each kernel's attributes, set once a device: room for the largest
+// dynamic shared memory any shape asks, and (cluster kernels) clusters
+// above 8 CTAs.
+template <typename K>
+cudaError_t prepare(K kernel, bool cluster) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> ready;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_pair(reinterpret_cast<const void*>(kernel), dev);
+  std::lock_guard<std::mutex> lock(mu);
+  if (ready.count(key)) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  if (err == cudaSuccess && cluster)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) ready.insert(key);
+  return err;
+}
+
 template <typename K, typename... Args>
 cudaError_t launch(K kernel, int grid, int threads, int smem,
                    cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = prepare(kernel, false);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
@@ -1784,36 +2105,89 @@ cudaError_t launch_general(const void* x, const void* w1, const void* b1,
                 static_cast<T*>(workspace), b, h, w, c);
 }
 
-}  // namespace
+// Split launches whose cluster of 16 could not be co-scheduled at their
+// shared memory and ran as clusters of 8 (a launch choice, reported by
+// alphafive_resblock_narrowed).
+std::atomic<long long> narrowed{0};
 
-// Which kernel alphafive_resblock runs for this shape: 0 streaming (bf16),
-// 1 resident (bf16), 2 tiled (f32), 4 general (either type, any C >= 1
-// and board), -1 refused (a dtype other than 0 or 1, or a
-// dimension below 1).
-extern "C" int alphafive_resblock_variant(int dtype, int h, int w, int c) {
-  return resblock_variant(dtype, h, w, c);
+// Clusters of k CTAs of `kernel` at `smem` bytes the device can hold at
+// once, asked once per (k, smem, device).
+template <typename K>
+int active_clusters(K kernel, int k, int smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, int, int>, int> known;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto key = std::make_tuple(k, smem, dev);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(k);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();  // a refused query leaves no error behind
+    n = 0;
+  }
+  known[key] = n;
+  return n;
 }
 
-// Bytes of device workspace alphafive_resblock needs for this batch and
-// shape (the streaming variant's packed taps; y of each CTA for the general
-// variant where y does not fit in shared memory; else 0); the caller
-// allocates it and passes it as `workspace`.
-extern "C" long long alphafive_resblock_workspace(int dtype, int b, int h,
-                                                  int w, int c) {
-  return workspace_bytes(dtype, b, h, w, c);
+// One cluster of cluster_size(b, h, w, c) CTAs a sample.
+cudaError_t launch_split(const void* x, const void* w1, const void* b1,
+                         const void* w2, const void* b2, void* out,
+                         void* workspace, int b, int h, int w, int c,
+                         cudaStream_t s) {
+  using T = __nv_bfloat16;
+  const auto kernel = split::kernel<split::BM>;
+  cudaError_t err = prepare(kernel, true);
+  if (err != cudaSuccess) return err;
+  const int smem = split::smem_bytes(h, w, c);
+  int k = cluster_size(b, h, w, c);
+  if (k > 8 && active_clusters(kernel, k, smem) < 1) {
+    k = 8;
+    ++narrowed;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = k;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(b * k);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const float*>(b1), static_cast<const T*>(w2),
+      static_cast<const float*>(b2), static_cast<T*>(out),
+      static_cast<T*>(workspace), h, w, c);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
-// the caller has checked shapes, types, contiguity and alignment, and
-// passes alphafive_resblock_workspace bytes at `workspace` (may be null
-// when that is 0). Launches on `stream` and does not synchronise.
-extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
-                                  const void* b1, const void* w2,
-                                  const void* b2, void* out, void* workspace,
-                                  int b, int h, int w, int c, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// `variant` on this batch and shape; cudaErrorInvalidValue where it does
+// not take the shape or a workspace it needs is missing.
+cudaError_t launch_variant(int variant, int dtype, const void* x,
+                           const void* w1, const void* b1, const void* w2,
+                           const void* b2, void* out, void* workspace, int b,
+                           int h, int w, int c, cudaStream_t s) {
   if (b == 0) return cudaSuccess;
-  const int variant = resblock_variant(dtype, h, w, c);
+  if (b < 0 || !takes(variant, dtype, h, w, c)) return cudaErrorInvalidValue;
+  if (workspace_bytes(variant, dtype, b, h, w, c) > 0 && workspace == nullptr)
+    return cudaErrorInvalidValue;
   switch (variant) {
     case kResident: {
       const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -1839,15 +2213,14 @@ extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
                     static_cast<const float*>(b2), static_cast<float*>(out),
                     b, h, w);
     case kGeneral:
-      if (workspace_bytes(dtype, b, h, w, c) > 0 && workspace == nullptr)
-        return cudaErrorInvalidValue;
       if (dtype == 1)
         return launch_general<__nv_bfloat16>(x, w1, b1, w2, b2, out,
                                              workspace, b, h, w, c, s);
       return launch_general<float>(x, w1, b1, w2, b2, out, workspace, b, h,
                                    w, c, s);
+    case kSplit:
+      return launch_split(x, w1, b1, w2, b2, out, workspace, b, h, w, c, s);
     case kStreaming:
-      if (workspace == nullptr) return cudaErrorInvalidValue;
       switch (c) {
         case 64:
           return launch_streaming<64>(x, w1, b1, w2, b2, out, workspace, b,
@@ -1861,6 +2234,75 @@ extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
       }
   }
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// Which kernel alphafive_resblock runs for a batch of b at this shape: 0
+// streaming (bf16), 1 resident (bf16), 2 tiled (f32), 4 general (either
+// type, any C >= 1 and board), 5 split (bf16, below the batches
+// kSplitBelow*), -1 refused (a dtype other than 0 or 1, or a dimension
+// below 1).
+extern "C" int alphafive_resblock_variant(int dtype, int b, int h, int w,
+                                          int c) {
+  return resblock_variant(dtype, b, h, w, c);
+}
+
+// Bytes of device workspace alphafive_resblock needs for this batch and
+// shape (the streaming variant's packed taps; y where it does not fit in
+// shared memory: each sample's for split, each CTA's for general; else
+// 0); the caller allocates it and passes it as `workspace`.
+extern "C" long long alphafive_resblock_workspace(int dtype, int b, int h,
+                                                  int w, int c) {
+  return workspace_bytes(resblock_variant(dtype, b, h, w, c), dtype, b, h, w,
+                         c);
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
+// the caller has checked shapes, types, contiguity and alignment, and
+// passes alphafive_resblock_workspace bytes at `workspace` (may be null
+// when that is 0). Launches on `stream` and does not synchronise.
+extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
+                                  const void* b1, const void* w2,
+                                  const void* b2, void* out, void* workspace,
+                                  int b, int h, int w, int c, void* stream) {
+  return launch_variant(resblock_variant(dtype, b, h, w, c), dtype, x, w1,
+                        b1, w2, b2, out, workspace, b, h, w, c,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// The same block by the variant named (a code of enum Variant) where that
+// variant takes the shape, else cudaErrorInvalidValue: for timing one
+// variant against another at one shape. The main path calls
+// alphafive_resblock.
+extern "C" int alphafive_resblock_as(int variant, int dtype, const void* x,
+                                     const void* w1, const void* b1,
+                                     const void* w2, const void* b2,
+                                     void* out, void* workspace, int b, int h,
+                                     int w, int c, void* stream) {
+  return launch_variant(variant, dtype, x, w1, b1, w2, b2, out, workspace, b,
+                        h, w, c, static_cast<cudaStream_t>(stream));
+}
+
+// alphafive_resblock_as's workspace bytes for `variant`.
+extern "C" long long alphafive_resblock_workspace_as(int variant, int dtype,
+                                                     int b, int h, int w,
+                                                     int c) {
+  return workspace_bytes(variant, dtype, b, h, w, c);
+}
+
+// Split launches so far that ran clusters of 8 where 16 could not be
+// co-scheduled.
+extern "C" long long alphafive_resblock_narrowed() { return narrowed; }
+
+// Clusters of k split CTAs at the shared memory of an h x w x c block
+// that the device can run at once (cudaOccupancyMaxActiveClusters; 0
+// where it refuses the size).
+extern "C" int alphafive_resblock_active_clusters(int k, int h, int w,
+                                                  int c) {
+  const auto kernel = split::kernel<split::BM>;
+  if (prepare(kernel, true) != cudaSuccess) return 0;
+  return active_clusters(kernel, k, split::smem_bytes(h, w, c));
 }
 
 // The streaming kernel's tap pack alone (alphafive_resblock runs it before

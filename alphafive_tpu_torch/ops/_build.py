@@ -71,10 +71,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.alphafive_resblock.argtypes = [i32] + [ptr] * 7 + [i32] * 4 + [ptr]
     lib.alphafive_resblock_workspace.restype = ctypes.c_longlong
     lib.alphafive_resblock_workspace.argtypes = [i32] * 5
+    lib.alphafive_resblock_as.restype = i32
+    lib.alphafive_resblock_as.argtypes = [i32] * 2 + [ptr] * 7 + [i32] * 4 + [
+        ptr]
+    lib.alphafive_resblock_workspace_as.restype = ctypes.c_longlong
+    lib.alphafive_resblock_workspace_as.argtypes = [i32] * 6
+    lib.alphafive_resblock_narrowed.restype = ctypes.c_longlong
+    lib.alphafive_resblock_narrowed.argtypes = []
+    lib.alphafive_resblock_active_clusters.restype = i32
+    lib.alphafive_resblock_active_clusters.argtypes = [i32] * 4
     lib.alphafive_resblock_variant.restype = i32
     lib.alphafive_resblock_pack_taps.restype = i32
     lib.alphafive_resblock_pack_taps.argtypes = [ptr] * 3 + [i32, ptr]
-    lib.alphafive_resblock_variant.argtypes = [i32] * 4
+    lib.alphafive_resblock_variant.argtypes = [i32] * 5
     lib.alphafive_select.restype = i32
     lib.alphafive_select.argtypes = ([ptr] + [i32] * 5 + [f32] * 2
                                      + [ptr] * 5 + [ptr])

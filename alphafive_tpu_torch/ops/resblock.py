@@ -15,6 +15,8 @@ Layout is the JAX package's: x NHWC ``[B, H, W, C]``, packed weights
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -42,13 +44,16 @@ def _general_ring(bf16: bool) -> int:
 _GENERAL_RING = {bf16: _general_ring(bf16) for bf16 in (True, False)}
 
 
-def _general_stage(h: int, w: int, c: int, bf16: bool) -> int:
+def _general_stage(h: int, w: int, c: int, bf16: bool,
+                   bm: int | None = None) -> int:
     """The general variant's shared memory beside y: the ring and the
     slabs, each of the rows of all three tap rows of an M tile (BM + 2w +
     2, at most h·w) and 3 zero rows (one slab where C <= BK and a 64-channel
     residual row fits in a slab row, else two), or, where that does not
-    fit, two of one tap row (BM + 2)."""
-    elem, pad, bm, bk, _ = _general_dims(bf16)
+    fit, two of one tap row (BM + 2). `bm`: tiles of other than BM pixels
+    (the split variant's SPLIT_BM)."""
+    elem, pad, tile_m, bk, _ = _general_dims(bf16)
+    bm = bm or tile_m
     for reach, slabs in ((2 * w + 2, 1 if c <= bk and 64 <= bk else 2),
                          (2, 2)):
         rows = min(bm + reach, h * w) + 3
@@ -57,8 +62,50 @@ def _general_stage(h: int, w: int, c: int, bf16: bool) -> int:
             return stage
     raise AssertionError("one tap row's slabs always fit")
 
+# csrc/resblock.cu's split variant (bf16): one sample over the CTAs of a
+# thread-block cluster, general's implicit GEMM in tiles of SPLIT_BM pixels
+# x 64 channels dealt to its ranks; clusters of 2 to SPLIT_CLUSTER_MAX
+# CTAs (`cluster_size`). It runs the batches below SPLIT_BELOW[v] of each
+# shape the variant v takes otherwise (kSplitBelowResident, ... in the
+# source): where chip_smoke.py measured it faster than v.
+SPLIT_BM, SPLIT_CLUSTER_MAX = 64, 16
+SPLIT_BELOW_RESIDENT = 17
+SPLIT_BELOW_STREAMING = 5
+SPLIT_BELOW_GENERAL = 2
+SPLIT_BELOW = {"resident": SPLIT_BELOW_RESIDENT,
+               "streaming": SPLIT_BELOW_STREAMING,
+               "general": SPLIT_BELOW_GENERAL}
+
+
+def split_tiles(h: int, w: int, c: int) -> int:
+    """Output tiles of one sample in the split variant: bands of SPLIT_BM
+    pixels x 64-channel groups."""
+    return -(-h * w // SPLIT_BM) * -(-c // 64)
+
+
+def cluster_size(b: int, h: int, w: int, c: int) -> int:
+    """CTAs of the split variant's cluster (csrc/resblock.cu's
+    cluster_size on a card of _SMS SMs): the power of two from 2 to
+    SPLIT_CLUSTER_MAX that covers one sample's tiles, halved while b
+    clusters would hold more than half the SMs (down to 2: a cluster's
+    CTAs share one GPC, so fewer than 8 clusters of 16 run at once). The
+    library runs 8 where a cluster of 16 cannot be co-scheduled, and
+    counts it (`cluster_narrowed`)."""
+    k, t = 2, split_tiles(h, w, c)
+    while k < SPLIT_CLUSTER_MAX and k < t:
+        k *= 2
+    while k > 2 and b * k > _SMS // 2:
+        k //= 2
+    return k
+
+
+def _split_fits(h: int, w: int, c: int) -> bool:
+    return c % 8 == 0 and _smem_bytes("split", h, w, c, True) <= _SMEM_LIMIT
+
+
 # csrc/resblock.cu's variant codes (alphafive_resblock_variant)
-VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 4: "general"}
+VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 4: "general",
+            5: "split"}
 resblock_launches = 0  # kernel launches since the last reset
 # the same launches by the variant the library ran (see `variant`)
 variant_launches = dict.fromkeys(VARIANTS.values(), 0)
@@ -163,19 +210,25 @@ def _y_bytes(h: int, w: int, c: int, bf16: bool) -> int:
     return (h * w + 3) * stride * (2 if bf16 else 4)
 
 
-def _y_in_smem(h: int, w: int, c: int, bf16: bool) -> bool:
-    need = _general_stage(h, w, c, bf16) + _y_bytes(h, w, c, bf16)
+def _y_in_smem(h: int, w: int, c: int, bf16: bool,
+               bm: int | None = None) -> bool:
+    need = _general_stage(h, w, c, bf16, bm) + _y_bytes(h, w, c, bf16)
     return need <= _SMEM_LIMIT
 
 
-def _workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool) -> int:
+def _workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool,
+                     kind: str | None = None) -> int:
     """Bytes of device workspace a batch of this shape takes
-    (csrc/resblock.cu's workspace_bytes on a card of _SMS SMs): the
-    streaming variant's packed taps; the general variant's y of one sample
-    per persistent CTA where it does not fit on chip."""
-    kind = variant(torch.bfloat16 if bf16 else torch.float32, h, w, c)
+    (csrc/resblock.cu's workspace_bytes on a card of _SMS SMs) in variant
+    `kind` (default: the one `variant` picks for the batch): the streaming
+    variant's packed taps; y where it does not fit on chip, of each sample
+    (split) or of one sample per persistent CTA (general)."""
+    kind = kind or variant(torch.bfloat16 if bf16 else torch.float32, h, w,
+                           c, b)
     if b >= 1 and kind == "streaming":
         return _TAPS * c * c * 2
+    if b >= 1 and kind == "split":
+        return 0 if _y_in_smem(h, w, c, True, SPLIT_BM) else b * h * w * c * 2
     if b < 1 or kind != "general" or _y_in_smem(h, w, c, bf16):
         return 0
     return min(b, _SMS) * h * w * c * (2 if bf16 else 4)
@@ -191,14 +244,17 @@ def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
         return (2 * c * c + 2 * (h + 2) * (w + 2) * (c + 4)) * 4
     if variant == "streaming":
         return 3 * c * c * 2 + (c // 8) * rows(384) * 16 + 2 * 3 * 8
-    if variant == "general":
-        return _general_stage(h, w, c, bf16) + (
-            _y_bytes(h, w, c, bf16) if _y_in_smem(h, w, c, bf16) else 0)
+    if variant in ("general", "split"):
+        bm = SPLIT_BM if variant == "split" else None
+        return _general_stage(h, w, c, bf16, bm) + (
+            _y_bytes(h, w, c, bf16) if _y_in_smem(h, w, c, bf16, bm) else 0)
     raise ValueError(f"no variant {variant!r}")
 
 
-def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
-    """The kernel variant that runs an [*, h, w, c] block of `dtype`:
+@functools.lru_cache(maxsize=None)   # a wrapper call asks it for its shape
+def variant(dtype: torch.dtype, h: int, w: int, c: int,
+            b: int | None = None) -> str:
+    """The kernel variant that runs a [b, h, w, c] block of `dtype`:
     "resident" (bf16, C = 64, h·(w + 1) up to 240, e.g. 15×15: weights
     resident, wgmma), "tiled" (f32, C = 64, up to 256 pixels: register-
     blocked SIMT), "streaming" (bf16, C in CHANNELS, up to h·(w + 1) =
@@ -206,7 +262,11 @@ def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
     shape: any other C, e.g. 16 or 256; bf16 boards from 20×20 up; f32
     beyond 256 pixels or at other widths, e.g. 19×19 × 64 or 192: implicit
     GEMM, mma.sync for bf16 and register-blocked SIMT for f32, no width or
-    board limit)."""
+    board limit); and, for bf16 batches b below SPLIT_BELOW of the variant
+    the shape takes otherwise, "split" (one sample over a cluster of
+    CTAs), where a sample has at least two of its tiles and C is a
+    multiple of 8. `b=None`: the choice at a batch that names none, as
+    before the split variant (no split)."""
     if min(h, w, c) < 1:
         raise ValueError(f"{h}x{w}x{c}: every dimension must be at least 1")
     bf16 = dtype == torch.bfloat16
@@ -216,10 +276,12 @@ def variant(dtype: torch.dtype, h: int, w: int, c: int) -> str:
                  ("streaming", fast and cells <= 384)]
     else:
         kinds = [("tiled", c == 64 and h * w <= 256)]
-    for v, shape_ok in kinds:
-        if shape_ok and _smem_bytes(v, h, w, c, bf16) <= _SMEM_LIMIT:
-            return v
-    return "general"
+    base = next((v for v, shape_ok in kinds if shape_ok and
+                 _smem_bytes(v, h, w, c, bf16) <= _SMEM_LIMIT), "general")
+    if (bf16 and b is not None and 1 <= b < SPLIT_BELOW[base]
+            and split_tiles(h, w, c) >= 2 and _split_fits(h, w, c)):
+        return "split"
+    return base
 
 
 def _check(x, w1, b1, w2, b2) -> str:
@@ -245,7 +307,34 @@ def _check(x, w1, b1, w2, b2) -> str:
                     ("b2", b2)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    return variant(x.dtype, h, w, c)
+    return variant(x.dtype, h, w, c, b)
+
+
+def cluster_narrowed() -> int:
+    """Split launches so far (this process, the library's count) that ran
+    clusters of 8 CTAs where cluster_size asked 16 and the card could not
+    co-schedule 16 at their shared memory."""
+    from alphafive_tpu_torch.ops import _build
+    return _build.load().alphafive_resblock_narrowed()
+
+
+# (dtype, b, h, w, c) -> (variant, workspace bytes) of shapes launched
+# before: the library's choice is checked against `variant` once a shape
+_launched: dict = {}
+
+
+def _library_choice(lib, x, kind: str) -> tuple:
+    b, h, w, c = x.shape
+    key = (x.dtype, b, h, w, c)
+    if key not in _launched:
+        bf16 = int(x.dtype == torch.bfloat16)
+        ran = VARIANTS.get(lib.alphafive_resblock_variant(bf16, b, h, w, c))
+        if ran != kind:
+            raise RuntimeError(f"{b}x{h}x{w}x{c} {x.dtype}: variant() picks "
+                               f"{kind}, csrc/resblock.cu {ran or 'none'}")
+        _launched[key] = (ran, lib.alphafive_resblock_workspace(
+            bf16, b, h, w, c))
+    return _launched[key]
 
 
 def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -261,14 +350,10 @@ def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
     out = torch.empty_like(x)
     b, h, w, c = x.shape
     bf16 = int(x.dtype == torch.bfloat16)
-    ran = VARIANTS.get(lib.alphafive_resblock_variant(bf16, h, w, c))
-    if ran != kind:
-        raise RuntimeError(f"{h}x{w}x{c} {x.dtype}: variant() picks {kind}, "
-                           f"csrc/resblock.cu {ran or 'none'}")
+    ran, n = _library_choice(lib, x, kind)
     with torch.cuda.device(x.device):
-        n = lib.alphafive_resblock_workspace(bf16, b, h, w, c)
-        # the streaming variant's packed taps, or (general) y of each
-        # persistent CTA where it does not fit in shared memory
+        # the streaming variant's packed taps, or y where it does not fit
+        # in shared memory (split: each sample's; general: each CTA's)
         ws = torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
         err = lib.alphafive_resblock(
             bf16, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -281,4 +366,34 @@ def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
     variant_launches[ran] += 1
     if ran == "streaming":   # the library packed the taps first
         pack_launches += 1
+    return out
+
+
+def fused_resblock_as(kind: str, x, w1, b1, w2, b2) -> torch.Tensor:
+    """The block on CUDA tensors by the kernel variant named `kind`, where
+    that variant takes the shape (the library's ``alphafive_resblock_as``),
+    else ValueError: to time one variant against another at one shape.
+    Counts no launch; the main path calls `fused_resblock`."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_resblock_as launches kernels only: got "
+                           f"{x.device}")
+    _check(x, w1, b1, w2, b2)
+    code = {v: k for k, v in VARIANTS.items()}[kind]
+    from alphafive_tpu_torch.ops import _build
+    lib = _build.load()
+    out = torch.empty_like(x)
+    b, h, w, c = x.shape
+    bf16 = int(x.dtype == torch.bfloat16)
+    with torch.cuda.device(x.device):
+        n = lib.alphafive_resblock_workspace_as(code, bf16, b, h, w, c)
+        ws = torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
+        err = lib.alphafive_resblock_as(
+            code, bf16, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), None if ws is None
+            else ws.data_ptr(), b, h, w, c,
+            torch.cuda.current_stream().cuda_stream)
+    if err == 1:   # cudaErrorInvalidValue: the variant does not take it
+        raise ValueError(f"{kind} does not take {b}x{h}x{w}x{c} {x.dtype}")
+    if err != 0:
+        raise RuntimeError(f"resblock {kind} launch failed: CUDA error {err}")
     return out

@@ -62,6 +62,12 @@ the entry points a user calls:
   (``train_nccl_one_rank``: self-play and the ring bit-equal, the
   learner within the iteration parity test's bars).
 
+* ``cli play``'s search (``run_mcts`` on one env, 400 sims) for 4 AI
+  moves from ``pretrained/15x15`` (``chip_15x15``) and
+  ``pretrained/19x19_10b`` (``renju_19x19``) with the bundle's net fused
+  (``small_batch_play``): the small batches (1 and 8) that the resblock
+  kernel's split variant serves, each held by a kernel_vs_plain row.
+
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
 JSON line; any failure raises. The last lines are the kernel table, the
@@ -81,7 +87,11 @@ descent's steps times one L2 round trip, both measured here by
 ``benchmarks/select_profile.py``. The streaming resblock rows also give
 ``before_ms``, the variant's time before its redesign, and the streaming
 variant's tap pack is held bit-equal to its plain twin at 64, 96 and 128
-channels (``pack_taps_vs_plain``).
+channels (``pack_taps_vs_plain``). The small-batch rows also give the
+split variant (one sample over a thread-block cluster) launched by name
+against the plain twin, its ``split_ms`` and the ``replaced_ms`` of the
+variant the shape takes otherwise; a row that dispatches split fails
+unless split is the faster in that run.
 """
 
 from __future__ import annotations
@@ -137,12 +147,17 @@ SHAPES = [(2048, 15, 64, torch.bfloat16, "resident"),
           (256, 19, 96, torch.float32, "general"),
           (256, 19, 128, torch.float32, "general")]
 EVAL_BATCHES = (1, 2, 4, 8, 16)
-SHAPES += [(b, 15, 64, torch.bfloat16, "resident") for b in EVAL_BATCHES]
+SHAPES += [(b, 15, 64, torch.bfloat16, "split") for b in EVAL_BATCHES]
 TWO_RANK_BATCHES = (1024, 16384)
 SHAPES += [(b, 15, 64, torch.bfloat16, "resident")
            for b in TWO_RANK_BATCHES]
 SHAPES += [(4096, 19, 128, torch.bfloat16, "streaming"),
            (512, 19, 128, torch.bfloat16, "streaming")]
+# the 19x19_10b bundle's cli play and cli eval forwards: the root (1) and
+# the leaf batches or Gumbel lanes (2 to 16)
+SHAPES += [(b, 19, 128, torch.bfloat16,
+            "split" if b < rb.SPLIT_BELOW_STREAMING else "streaming")
+           for b in EVAL_BATCHES]
 # the streaming rows' device ms before the variant's redesign (the first
 # form: a cp.async ring, a block barrier a tap, x reloaded for the
 # residual), by this script on an H100 80GB HBM3 at 700 W: each row gives
@@ -173,8 +188,28 @@ GENERAL_SHAPES = [(4, 5, 16, torch.float32), (4, 7, 32, torch.float32),
                   (256, 19, 192, torch.float32),
                   (1, 15, 256, torch.bfloat16), (133, 9, 40, torch.bfloat16),
                   (64, 6, 8, torch.bfloat16), (1, 240, 72, torch.bfloat16)]
-SHAPES += [(b, s, c, dt, "general") for b, s, c, dt in GENERAL_SHAPES]
+SHAPES += [(b, s, c, dt, rb.variant(dt, s, s, c, b))
+           for b, s, c, dt in GENERAL_SHAPES]
+# the 33x33 search's forwards (phase general_shapes: one env, batch 1)
+SHAPES += [(1, 33, 64, torch.bfloat16, "split")]
+# the split variant (one sample over a thread-block cluster) is held
+# against the plain twin, and timed beside the variant its shape takes
+# otherwise, at every bf16 row whose batch it takes (split_ms, replaced,
+# replaced_ms; a row that dispatches split must be the faster) and at
+# these rows of other variants, where it is timed beside them
+SPLIT_ALSO = {(64, 6, 8)} | {(b, 19, 128) for b in EVAL_BATCHES}
+# host µs a call of the small-batch rows before this variant, the
+# wrapper's per-call cudaFuncSetAttribute and checks (the resident and
+# streaming kernels then ran these rows), by this script on an H100 80GB
+# HBM3 at 700 W: each row gives it as host_us_before
+HOST_US_BEFORE = {(1, 15, 64): 24.9, (2, 15, 64): 44.9, (4, 15, 64): 35.8,
+                  (8, 15, 64): 24.4, (16, 15, 64): 37.7,
+                  (1, 19, 128): 54.0, (2, 19, 128): 58.8, (4, 19, 128): 47.9,
+                  (8, 19, 128): 48.0, (16, 19, 128): 48.1,
+                  (1, 15, 256): 282.4, (1, 240, 72): 16283.3,
+                  (64, 6, 8): 39.6}
 GENERAL_ROW = (2048, 15, 256)
+SPLIT_ROW = (1, 19, 128)   # the split row the kernels line shows
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -288,6 +323,12 @@ GENERAL_PLIES = 1
 GENERAL_WIDE = ["net.channels=256"]
 GENERAL_BOARD = ["env.board_size=21"]
 GENERAL_SEARCH_SIMS = 64
+# phase small_batch_play: cli play's AI search (run_mcts on one env, no
+# noise, the preset's search: 400 sims, leaf_batch 8, branch cap 128) for
+# PLAY_MOVES moves with no human, the AI playing both colours, from each
+# bundle under its preset: forwards of 1 (the root) and 8 (the leaves)
+PLAY_MOVES, PLAY_SIMS = 4, 400
+PLAY_BUNDLES = [("15x15", "chip_15x15"), ("19x19_10b", "renju_19x19")]
 # cli eval: two games against the rollout anchor at a small budget
 EVAL_ARGV = ["eval", "--preset", "chip_15x15",
              "--set", "mcts.select_impl=pallas",
@@ -405,11 +446,45 @@ def phase_kernel_vs_plain():
             2 * 2 * b * s * s * c * c * 9,
             2 * x.numel() * item + 2 * w1.numel() * item + 2 * 4 * c, dt)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-        if kind == "streaming":   # the row's ms includes the tap pack
+        if (b, s, c) in STREAMING_BEFORE_MS:  # ms includes the tap pack
             row["before_ms"] = STREAMING_BEFORE_MS[(b, s, c)]
+        if (b, s, c) in HOST_US_BEFORE:
+            row["host_us_before"] = HOST_US_BEFORE[(b, s, c)]
+        if kind == "split" or (b, s, c) in SPLIT_ALSO:
+            split_vs_replaced(row, kind, x, w1, b1, w2, b2)
         emit("kernel_vs_plain", **row, ok=True)
         rows.append(row)
     return rows
+
+
+def split_vs_replaced(row: dict, kind: str, x, w1, b1, w2, b2) -> None:
+    """The split variant at this row, launched by name, against the plain
+    twin within TOL, and both it and the variant the shape takes otherwise
+    timed by graph replay (`split_ms`, `replaced`, `replaced_ms`). Where
+    the dispatch picks split it must be the faster in this run."""
+    dt, (b, h, w, c) = x.dtype, x.shape
+    base = rb.variant(dt, h, w, c)
+    got = rb.fused_resblock_as("split", x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    ref = rb.fused_resblock_reference(x, w1, b1, w2, b2).float()
+    err = (got.float() - ref).abs()
+    atol, rtol = TOL[dt]
+    row["split_max_abs_err"] = err.max().item()
+    row["cluster_size"] = rb.cluster_size(b, h, w, c)
+    # clusters of that size the card runs at once at split's shared memory
+    row["active_clusters"] = _build.load().alphafive_resblock_active_clusters(
+        row["cluster_size"], h, w, c)
+    if not (err - rtol * ref.abs()).max().item() <= atol:
+        emit("kernel_vs_plain", **row, ok=False)
+        raise AssertionError(f"split disagrees with the plain twin: {row}")
+    row["split_ms"], row["split_ms_spread"] = timing.graph_ms(
+        lambda: rb.fused_resblock_as("split", x, w1, b1, w2, b2))
+    row["replaced"] = base
+    row["replaced_ms"], row["replaced_ms_spread"] = timing.graph_ms(
+        lambda: rb.fused_resblock_as(base, x, w1, b1, w2, b2))
+    if kind == "split" and not row["split_ms"] < row["replaced_ms"]:
+        emit("kernel_vs_plain", **row, ok=False)
+        raise AssertionError(f"split dispatched but not faster: {row}")
 
 
 def phase_pack_taps_vs_plain():
@@ -1580,7 +1655,9 @@ def phase_train_loop(workdir: str, card: str):
     updating with finite losses, checkpoints 2 and 4, one eval with a
     finite Elo, best), the checkpoint steps, best_model loading with the
     live weights and an equal f32 forward, every resblock launch resident
-    and every batch the eval launched a row of kernel_vs_plain. The save
+    or (the eval's batches of 1 to 16) split as the dispatch picks, and
+    every batch the eval launched a row of kernel_vs_plain at that
+    variant. The save
     and eval seconds by synchronised timers; the device memory peak over
     the phase."""
     from alphafive_tpu_torch import cli
@@ -1605,7 +1682,7 @@ def phase_train_loop(workdir: str, card: str):
         return returned[-1]
 
     def recording_fused(x, *args):
-        batches.append(tuple(x.shape))
+        batches.append((*x.shape, x.dtype))
         return fused(x, *args)
 
     torch.cuda.empty_cache()
@@ -1672,12 +1749,11 @@ def phase_train_loop(workdir: str, card: str):
                                                           live_out))
     if not (weights_equal and forward_equal):
         fails.append(("best_model", weights_equal, forward_equal))
-    if not (launches > 0 and variants["resident"] == launches):
+    if not (launches > 0 and variants == dispatched(batches)
+            and variants["resident"] + variants["split"] == launches):
         fails.append(("launches", launches, variants))
-    covered = {b for b, s, c, dt, _ in SHAPES
-               if (s, c, dt) == (15, 64, torch.bfloat16)}
     seen = sorted({b[0] for b in batches})
-    missing = [b for b in seen if b not in covered]
+    missing = uncovered(batches)
     if missing:
         fails.append(("batches without a kernel_vs_plain row", missing))
     out = dict(
@@ -2146,14 +2222,104 @@ def phase_train_nccl_one_rank(card: str):
     return a["launches"]
 
 
+def phase_small_batch_play(card: str) -> dict:
+    """`cli play`'s search, the call `_cmd_play` makes for an AI move, for
+    PLAY_MOVES moves from each of PLAY_BUNDLES with net.use_pallas=true.
+    cli play builds its evaluator from the bundle's own net config, whose
+    use_pallas is false (the JAX CLI does the same); here the bundle's net
+    runs the fused forward, as `--set net.use_pallas=true` asks. Each move
+    legal; per move the seconds (synchronised), the resblock launches by
+    variant (the counts set to 0 just before the search and read just
+    after) and the batches seen; every launch in the variant the dispatch
+    picks, every shape with a kernel_vs_plain row. Returns the launches
+    by bundle."""
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.env import vector
+    from alphafive_tpu_torch.mcts.search import run_mcts
+    from alphafive_tpu_torch.models.evaluator import net_evaluator
+    from alphafive_tpu_torch.train.checkpoint import load_model
+    launches, failed = {}, {}
+    for bundle, preset in PLAY_BUNDLES:
+        cfg = apply_overrides(get_preset(preset), ["net.use_pallas=true"])
+        params, stats, saved = load_model(os.path.join(ROOT, "pretrained",
+                                                       bundle))
+        check_fit(bundle, saved, cfg)
+        net_cfg = dataclasses.replace(saved.net, use_pallas=True)
+        evaluate = net_evaluator(cfg.env, net_cfg, params, stats, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        st = vector.init(cfg.env, 1, "cuda")
+        moves, fails, total = [], [], dict.fromkeys(rb.variant_launches, 0)
+        for m in range(PLAY_MOVES):
+            res, seconds, counts = general_counts(lambda: run_mcts(
+                cfg.env, cfg.mcts, evaluate, st, gen,
+                num_simulations=PLAY_SIMS, add_noise=False))
+            a = int(res.visits[0].argmax())
+            legal = bool(st.board[0, a] == 0) and not bool(st.done[0])
+            st = vector.step(cfg.env, st, torch.tensor(
+                [a], dtype=torch.int32, device="cuda"))
+            for k, v in counts["variant_launches"].items():
+                total[k] += v
+            moves.append(dict(
+                move=m, action=divmod(a, cfg.env.board_size),
+                root_value=float(res.root_value[0]), seconds=seconds,
+                legal=legal, visits=int(res.visits[0].sum()),
+                **{k: counts[k] for k in (
+                    "resblock_launches", "variant_launches", "dispatched",
+                    "resblock_batches", "uncovered")}))
+            fails += [(m, k) for k, ok in (
+                ("legal", legal), ("visits", int(res.visits[0].sum())
+                                   == PLAY_SIMS),
+                ("as_dispatched", as_dispatched(counts))) if not ok]
+        stones = int((st.board[0] != 0).sum())
+        if stones != PLAY_MOVES:
+            fails.append(("stones", stones))
+        if bundle == "19x19_10b" and not total["split"] > 0:
+            fails.append(("no split launch", total))
+        emit("small_batch_play", bundle=f"pretrained/{bundle}",
+             preset=cfg.name, sims=PLAY_SIMS, envs=1,
+             leaf_batch=cfg.mcts.leaf_batch, blocks=net_cfg.blocks,
+             channels=net_cfg.channels, moves=moves,
+             seconds_per_move=[mv["seconds"] for mv in moves],
+             variant_launches=total,
+             cluster_narrowed=rb.cluster_narrowed(),
+             nvidia_smi=nvidia_smi(), card=card, failed=fails,
+             ok=not fails)
+        launches[bundle] = sum(total.values())
+        if fails:
+            failed[bundle] = fails
+    if failed:
+        raise AssertionError(f"small_batch_play failed its checks: {failed}")
+    return launches
+
+
+def dispatched(launched: list) -> dict:
+    """The launches by variant that `rb.variant` picks for each recorded
+    (batch, h, w, c, dtype) launch."""
+    want = dict.fromkeys(rb.variant_launches, 0)
+    for b, h, w, c, dt in launched:
+        want[rb.variant(dt, h, w, c, b)] += 1
+    return want
+
+
+def uncovered(launched: list) -> list:
+    """The (batch, h, w, c, dtype) shapes among `launched` that no
+    kernel_vs_plain row holds at the variant they ran."""
+    rows = {(b, s, s, c, dt): kind for b, s, c, dt, kind in SHAPES}
+    return sorted({(b, h, w, c, str(dt)[6:]) for b, h, w, c, dt in launched
+                   if rows.get((b, h, w, c, dt)) != rb.variant(dt, h, w, c,
+                                                               b)})
+
+
 def general_counts(fn):
     """Run `fn()` with the resblock counts (by variant, with the shapes it
-    launched at) and the select launches set to 0 just before and read
-    just after: (result, seconds, counts)."""
-    shapes, fused = set(), rb.fused_resblock
+    launched at, and the counts the dispatch should give them) and the
+    select launches set to 0 just before and read just after: (result,
+    seconds, counts)."""
+    shapes, launched, fused = set(), [], rb.fused_resblock
 
     def recording(x, *args):
         shapes.add((x.shape[1], x.shape[2], x.shape[3], str(x.dtype)[6:]))
+        launched.append((*x.shape, x.dtype))
         return fused(x, *args)
 
     rb.resblock_launches = 0
@@ -2167,12 +2333,23 @@ def general_counts(fn):
     return out, seconds, dict(
         resblock_launches=rb.resblock_launches,
         variant_launches=dict(rb.variant_launches),
-        resblock_shapes=sorted(shapes), select_launches=sel.select_launches)
+        dispatched=dispatched(launched),
+        resblock_batches=sorted({b for b, *_ in launched}),
+        resblock_shapes=sorted(shapes), select_launches=sel.select_launches,
+        uncovered=uncovered(launched))
 
 
 def all_general(counts: dict) -> bool:
     return 0 < counts["resblock_launches"] == counts["variant_launches"][
         "general"]
+
+
+def as_dispatched(counts: dict) -> bool:
+    """Launches counted by the variants the dispatch picks at the batches
+    seen (the 33x33 search's batch 1: split), each shape with a row."""
+    return (0 < counts["resblock_launches"]
+            and counts["variant_launches"] == counts["dispatched"]
+            and not counts["uncovered"])
 
 
 def general_train(card: str) -> dict:
@@ -2265,8 +2442,9 @@ def general_selfplay(name: str, overrides: list, card: str) -> dict:
 def general_search(card: str) -> dict:
     """run_mcts_packed on a 33×33 board (A_pad 1152), one env, 64 sims,
     random_net(33): every select launch at A_pad 1152 (the kernel's
-    chunk-streaming path), every resblock launch general at 33×33 × 64,
-    visits bit-equal to the plain descent's on the same net."""
+    chunk-streaming path), every resblock launch at 33×33 × 64 in the
+    variant the dispatch picks for its batch (1: split), visits bit-equal
+    to the plain descent's on the same net."""
     pads = []
 
     def select(packed, *args):
@@ -2288,7 +2466,7 @@ def general_search(card: str) -> dict:
         ("select_launches", counts["select_launches"]
          == GENERAL_SEARCH_SIMS == len(pads)),
         ("a_pad", set(pads) == {1152}),
-        ("all_general", all_general(counts)),
+        ("as_dispatched", as_dispatched(counts)),
         ("shapes", counts["resblock_shapes"] == [(33, 33, 64, "bfloat16")]),
         ("visits_sum", bool((res_k.visits.sum(-1)
                              == GENERAL_SEARCH_SIMS).all())),
@@ -2329,6 +2507,7 @@ def main() -> int:
     latency = phase_select_latency(plib)
     rows = phase_kernel_vs_plain()
     pack_rows = phase_pack_taps_vs_plain()
+    play_launches = phase_small_batch_play(card)
     params, stats, saved_cfg = phase_bundle("15x15")
     rb_launches = phase_selfplay(params, stats, saved_cfg, card)
     renju_launches, pack_launches = phase_selfplay_renju(card)
@@ -2367,6 +2546,8 @@ def main() -> int:
     leaf_row = next(r for r in rows if r["batch"] == 32768)
     rank_leaf_row = next(r for r in rows if r["batch"] == 16384)
     renju_leaf_row = next(r for r in rows if r["batch"] == 4096)
+    split_row = next(r for r in rows if (r["batch"], r["board"],
+                                         r["channels"]) == SPLIT_ROW)
     general_row = next(r for r in rows if (r["batch"], r["board"],
                                            r["channels"]) == GENERAL_ROW)
     sel_row = next(r for r in sel_rows if r["envs"] == 1
@@ -2378,7 +2559,8 @@ def main() -> int:
         "replaces": "alphafive_tpu/ops/pallas_resblock.py:97",
         "launches": (rb_launches + renju_launches + lowsim_launches
                      + train_launches + run["launches"] + two_rank_launches
-                     + nccl_launches + general["resblock_launches"]),
+                     + nccl_launches + general["resblock_launches"]
+                     + sum(play_launches.values())),
         "launches_chip_15x15": rb_launches,
         "launches_renju_19x19": renju_launches,
         "launches_lowsim_15x15": lowsim_launches,
@@ -2387,6 +2569,7 @@ def main() -> int:
         "launches_train_two_ranks": two_rank_launches,
         "launches_train_nccl_one_rank": nccl_launches,
         "launches_general_shapes": general["resblock_launches"],
+        "launches_small_batch_play": play_launches,
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2402,6 +2585,11 @@ def main() -> int:
             "batch", "board", "channels", "variant", "max_abs_err", "ms",
             "host_us_per_call", "plain_ms", "bound_ms", "bound_by",
             "share_of_bound", "library_ms")},
+        "split_shape": {k: split_row[k] for k in (
+            "batch", "board", "channels", "variant", "cluster_size",
+            "max_abs_err", "ms", "replaced", "replaced_ms",
+            "host_us_per_call", "host_us_before", "plain_ms", "bound_ms",
+            "bound_by", "share_of_bound", "library_ms")},
         "general_shape": {k: general_row[k] for k in (
             "batch", "board", "channels", "variant", "max_abs_err", "ms",
             "host_us_per_call", "plain_ms", "bound_ms", "bound_by",

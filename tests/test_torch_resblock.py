@@ -101,31 +101,45 @@ def test_kernel_wrapper_rejects_unsupported():
         rb._check(t, w, b.to(torch.bfloat16), w, b)          # bias dtype
     with pytest.raises(TypeError):
         rb._check(t.half(), w.half(), b, w.half(), b)        # fp16
-    big = torch.zeros(1, 25, 25, 128, dtype=torch.bfloat16)
+    # at a batch of 2: a batch of 1 at this shape runs the split variant
+    big = torch.zeros(2, 25, 25, 128, dtype=torch.bfloat16)
     wb = torch.zeros(9, 128, 128, dtype=torch.bfloat16)
     assert rb._check(big, wb, torch.zeros(128), wb,
                      torch.zeros(128)) == "general"    # beyond streaming
 
 
-@pytest.mark.parametrize("dtype,size,c,want", [
-    (torch.bfloat16, 15, 64, "resident"),   # self-play's pass and root forwards
-    (torch.bfloat16, 9, 64, "resident"),
-    (torch.bfloat16, 19, 96, "streaming"),
-    (torch.bfloat16, 19, 128, "streaming"),
-    (torch.bfloat16, 19, 64, "streaming"),  # 19 x 20 positions > 240
-    (torch.float32, 15, 64, "tiled"),
-    (torch.float32, 9, 64, "tiled"),
-    (torch.float32, 19, 64, "general"),   # 361 pixels > 256
-    (torch.float32, 19, 96, "general"),
-    (torch.float32, 19, 128, "general"),
+@pytest.mark.parametrize("dtype,size,c,batch,want", [
+    # self-play's pass and root forwards
+    (torch.bfloat16, 15, 64, 2048, "resident"),
+    (torch.bfloat16, 9, 64, 2048, "resident"),
+    (torch.bfloat16, 19, 96, 2048, "streaming"),
+    (torch.bfloat16, 19, 128, 2048, "streaming"),
+    (torch.bfloat16, 19, 64, 2048, "streaming"),  # 19 x 20 positions > 240
+    (torch.float32, 15, 64, 2048, "tiled"),
+    (torch.float32, 9, 64, 2048, "tiled"),
+    (torch.float32, 19, 64, 2048, "general"),   # 361 pixels > 256
+    (torch.float32, 19, 96, 2048, "general"),
+    (torch.float32, 19, 128, 2048, "general"),
+    # the evals' and cli play's small batches: one sample over a cluster
+    (torch.bfloat16, 15, 64, 1, "split"),
+    (torch.bfloat16, 15, 64, 2, "split"),
+    (torch.bfloat16, 15, 64, 8, "split"),
+    (torch.bfloat16, 15, 64, 16, "split"),
+    (torch.bfloat16, 19, 128, 1, "split"),
+    (torch.bfloat16, 19, 128, 4, "split"),
+    (torch.bfloat16, 19, 128, 8, "streaming"),  # split measured slower
+    (torch.bfloat16, 19, 128, 16, "streaming"),
+    (torch.bfloat16, 15, 256, 1, "split"),
+    (torch.bfloat16, 15, 256, 2, "general"),
+    (torch.float32, 15, 64, 1, "tiled"),        # f32 never splits
 ])
-def test_variant_chooser(dtype, size, c, want):
-    """The kernel variant per shape, as csrc/resblock.cu's
+def test_variant_chooser(dtype, size, c, batch, want):
+    """The kernel variant per shape and batch, as csrc/resblock.cu's
     resblock_variant() picks it, within one block's shared memory."""
-    assert rb.variant(dtype, size, size, c) == want
+    assert rb.variant(dtype, size, size, c, batch) == want
     need = rb._smem_bytes(want, size, size, c, dtype == torch.bfloat16)
     assert need <= rb._SMEM_LIMIT
-    t = torch.zeros(2, size, size, c, dtype=dtype)
+    t = torch.zeros(batch, size, size, c, dtype=dtype)
     w = torch.zeros(9, c, c, dtype=dtype)
     b = torch.zeros(c)
     assert rb._check(t, w, b, w, b) == want
@@ -165,10 +179,10 @@ def test_variant_codes_match_source():
     enum = re.search(r"enum Variant \{(.*?)\};", src, re.S).group(1)
     codes = {int(v): k for k, v in re.findall(r"k(\w+) = (-?\d+)", enum)}
     names = {-1: "Refused", 0: "Streaming", 1: "Resident", 2: "Tiled",
-             4: "General"}
+             4: "General", 5: "Split"}
     assert codes == names
     assert rb.VARIANTS == {0: "streaming", 1: "resident", 2: "tiled",
-                           4: "general"}
+                           4: "general", 5: "split"}
     assert set(rb.variant_launches) == set(rb.VARIANTS.values())
 
 
@@ -246,8 +260,9 @@ def test_streaming_workspace_matches_source(b, size, c):
     want = eval("kTaps" + formula, {}, dict(kTaps=taps, c=c))
     assert want == 18 * c * c * 2
     assert rb.variant(torch.bfloat16, size, size, c) == "streaming"
-    assert rb._workspace_bytes(b, size, size, c, True) == want
-    assert rb._workspace_bytes(0, size, size, c, True) == 0
+    # named: a batch of 1 at 19x19 x 128 dispatches to the split variant
+    assert rb._workspace_bytes(b, size, size, c, True, "streaming") == want
+    assert rb._workspace_bytes(0, size, size, c, True, "streaming") == 0
 
 
 def test_streaming_smem_matches_source():
