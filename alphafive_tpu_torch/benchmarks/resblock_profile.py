@@ -11,7 +11,8 @@ resident (2,048 × 15×15 and 9×9 × 64), streaming (2,048 × 19×19 × 96 and
 (2,048 × 15×15 × 256 and 2,048 × 21×21 × 64); then one sample of each
 (1 × 15×15 × 64 resident, 1 × 19×19 × 128 streaming, 1 × 15×15 × 256
 general) and the split variant at 1 × 15×15 × 64, 1 × 19×19 × 128, 1 ×
-15×15 × 256, 8 × 19×19 × 128 and 16 × 15×15 × 64. In the copy, every
+15×15 × 256, 8 × 19×19 × 128, 16 × 15×15 × 64, 1 × 33×33 × 64 and 1 ×
+240×240 × 72 (y in the workspace). In the copy, every
 line ``// stamp: K`` of the source becomes a ``clock64()`` stamp K of
 thread 0 of block 0, kept for its first 16 samples (K may be an
 expression), and ``// launch stamp: K`` one of block 0 into sample 0's
@@ -42,9 +43,9 @@ stage refilled before every warp released it), and the copy-out's output
 ``epilogue`` and its K step's ``barrier`` (split runs the same K loop).
 The results are then wrong, and only the timing is read.
 
-``--source PATH`` profiles another copy of the source instead (an
-earlier commit's ``csrc/resblock.cu``, say, so that one call to the card
-compares the two).
+``--source PATH`` profiles another copy of the source instead (a step's
+``csrc/resblock.cu``, say, so that one call to the card compares the
+two); it must have ``alphafive_resblock_as``.
 """
 
 from __future__ import annotations
@@ -72,7 +73,8 @@ SHAPES = [(2048, 15, 64, "resident"), (2048, 9, 64, "resident"),
           (2048, 21, 64, "general"), (1, 15, 64, "resident"),
           (1, 19, 128, "streaming"), (1, 15, 256, "general"),
           (1, 15, 64, "split"), (1, 19, 128, "split"), (1, 15, 256, "split"),
-          (8, 19, 128, "split"), (16, 15, 64, "split")]
+          (8, 19, 128, "split"), (16, 15, 64, "split"), (1, 33, 64, "split"),
+          (1, 240, 72, "split")]
 CODES = {"streaming": 0, "resident": 1, "general": 4, "split": 5}
 ABLATIONS = ("bulk", "empty", "store", "xload", "barrier", "mma", "copies",
              "epilogue")
@@ -139,16 +141,11 @@ def build(ablate, source: str = SOURCE) -> ctypes.CDLL:
                         cu], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.alphafive_resblock.restype = i32
-    lib.alphafive_resblock.argtypes = [i32] + [ptr] * 7 + [i32] * 4 + [ptr]
-    lib.alphafive_resblock_workspace.restype = ctypes.c_longlong
-    lib.alphafive_resblock_workspace.argtypes = [i32] * 5
-    if hasattr(lib, "alphafive_resblock_as"):  # a source with named variants
-        lib.alphafive_resblock_as.restype = i32
-        lib.alphafive_resblock_as.argtypes = [i32] * 2 + [ptr] * 7 + [
-            i32] * 4 + [ptr]
-        lib.alphafive_resblock_workspace_as.restype = ctypes.c_longlong
-        lib.alphafive_resblock_workspace_as.argtypes = [i32] * 6
+    lib.alphafive_resblock_as.restype = i32
+    lib.alphafive_resblock_as.argtypes = [i32] * 2 + [ptr] * 7 + [i32] * 4 + [
+        ptr]
+    lib.alphafive_resblock_workspace_as.restype = ctypes.c_longlong
+    lib.alphafive_resblock_workspace_as.argtypes = [i32] * 6
     lib.resblock_stamps_fetch.restype = i32
     lib.resblock_stamps_fetch.argtypes = [ptr]
     lib.resblock_stamps_clear.restype = i32
@@ -163,20 +160,16 @@ def profile(lib, b: int, s: int, c: int, kind: str, seed: int = 0) -> dict:
     b1, b2 = (0.1 * torch.randn(c, generator=g, device="cuda")
               for _ in range(2))
     out = torch.empty_like(x)
-    # the named variant where the source can launch one by name, else
-    # its dispatch (an earlier source's)
-    named = hasattr(lib, "alphafive_resblock_as")
-    pre = [CODES[kind]] if named else []
-    fn = lib.alphafive_resblock_as if named else lib.alphafive_resblock
-    n = (lib.alphafive_resblock_workspace_as if named else
-         lib.alphafive_resblock_workspace)(*pre, 1, b, s, s, c)
+    code = CODES[kind]
+    n = lib.alphafive_resblock_workspace_as(code, 1, b, s, s, c)
     ws = torch.empty(n, dtype=torch.uint8, device="cuda") if n else None
 
     def call():
-        err = fn(*pre, 1, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                 w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), b, s, s, c,
-                 torch.cuda.current_stream().cuda_stream)
+        err = lib.alphafive_resblock_as(
+            code, 1, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, s, s, c,
+            torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"resblock launch failed: CUDA error {err}")
 

@@ -1502,10 +1502,13 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
   const int acol = tid % G::kACols * G::kChunk, arow0 = tid / G::kACols;
   const int bcol = tid % G::kBCols * G::kChunk, brow0 = tid / G::kBCols;
 
-  const int ntn = (c + BN - 1) / BN;  // channel tiles
+  const int ntn = (c + BN - 1) / BN;  // channel tiles of a pixel band
   const int tiles = (hw + G::kBM - 1) / G::kBM * ntn;
-  for (int tile = first; tile < tiles; tile += step) {
-    const int m0 = tile / ntn * G::kBM, n0 = tile % ntn * BN;
+  // j: this CTA's first tile of a band it has tiles in; the next such j
+  // is its first tile past the band (bands without one are not visited)
+  for (int j = first; j < tiles;
+       j += (j / ntn * ntn + ntn - j + step - 1) / step * step) {
+    const int m0 = j / ntn * G::kBM;
     // the lane's A rows: pixel p's offset in A's buffer, which of the 9
     // taps lie on the board (bit t; none past the sample), and where in
     // the zero rows it reads off the board: chunk (p - zrow) mod 8, plus
@@ -1540,7 +1543,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
         stage_chunk(sl + row * G::kAStride, from + row * c, src, true,
                     c - ch, vec);
     };
-    {
+    for (int n0 = j % ntn * BN; n0 < c; n0 += step * BN) {
       // warps whose whole tile lies past the sample or past C only copy
       const bool active = m0 + wm0 < hw && n0 + wn0 < c;
       float acc[G::kAcc];
@@ -1575,9 +1578,10 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
       };
 
       __syncthreads();  // every warp is done with the last tile's smem
-      if (!kDirect && tile == first) {
-        // the slabs' zero rows (conv 2's residual tile may have covered
-        // them); the barrier of step 0 publishes them
+      if (!kDirect && m0 / G::kBM * ntn + n0 / BN == first) {
+        // at this CTA's first tile, the slabs' zero rows (conv 2's
+        // residual tile may have covered them); the barrier of step 0
+        // publishes them
         constexpr int kZero = kZeroRows * G::kAStride;
         for (int i = tid; i < slab_slots(c, span, G::kElem) * kZero;
              i += kThreads)

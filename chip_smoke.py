@@ -155,9 +155,11 @@ SHAPES += [(4096, 19, 128, torch.bfloat16, "streaming"),
            (512, 19, 128, torch.bfloat16, "streaming")]
 # the 19x19_10b bundle's cli play and cli eval forwards: the root (1) and
 # the leaf batches or Gumbel lanes (2 to 16)
-SHAPES += [(b, 19, 128, torch.bfloat16,
-            "split" if b < rb.SPLIT_BELOW_STREAMING else "streaming")
-           for b in EVAL_BATCHES]
+SHAPES += [(1, 19, 128, torch.bfloat16, "split"),
+           (2, 19, 128, torch.bfloat16, "split"),
+           (4, 19, 128, torch.bfloat16, "split"),
+           (8, 19, 128, torch.bfloat16, "streaming"),
+           (16, 19, 128, torch.bfloat16, "streaming")]
 # the streaming rows' device ms before the variant's redesign (the first
 # form: a cp.async ring, a block barrier a tap, x reloaded for the
 # residual), by this script on an H100 80GB HBM3 at 700 W: each row gives
@@ -177,19 +179,22 @@ PACK_CHANNELS = (64, 96, 128)
 # 1 at 256 channels (a 256-channel net's eval), one sample more than the
 # 132-CTA grid at C = 40 (K padded to 48), C = 8 (below one k16 step),
 # and a 240x240 board at C = 72, too wide for two slabs of all three tap
-# rows (span 1).
+# rows (span 1). Their two bf16 rows at batch 1 go to the split variant.
 # GENERAL_ROW is the row the kernels line shows
-GENERAL_SHAPES = [(4, 5, 16, torch.float32), (4, 7, 32, torch.float32),
-                  (256, 5, 16, torch.bfloat16),
-                  (2048, 15, 48, torch.bfloat16), (64, 9, 20, torch.bfloat16),
-                  (2048, 15, 256, torch.bfloat16),
-                  (2048, 21, 64, torch.bfloat16),
-                  (256, 33, 64, torch.bfloat16),
-                  (256, 19, 192, torch.float32),
-                  (1, 15, 256, torch.bfloat16), (133, 9, 40, torch.bfloat16),
-                  (64, 6, 8, torch.bfloat16), (1, 240, 72, torch.bfloat16)]
-SHAPES += [(b, s, c, dt, rb.variant(dt, s, s, c, b))
-           for b, s, c, dt in GENERAL_SHAPES]
+GENERAL_SHAPES = [(4, 5, 16, torch.float32, "general"),
+                  (4, 7, 32, torch.float32, "general"),
+                  (256, 5, 16, torch.bfloat16, "general"),
+                  (2048, 15, 48, torch.bfloat16, "general"),
+                  (64, 9, 20, torch.bfloat16, "general"),
+                  (2048, 15, 256, torch.bfloat16, "general"),
+                  (2048, 21, 64, torch.bfloat16, "general"),
+                  (256, 33, 64, torch.bfloat16, "general"),
+                  (256, 19, 192, torch.float32, "general"),
+                  (1, 15, 256, torch.bfloat16, "split"),
+                  (133, 9, 40, torch.bfloat16, "general"),
+                  (64, 6, 8, torch.bfloat16, "general"),
+                  (1, 240, 72, torch.bfloat16, "split")]
+SHAPES += GENERAL_SHAPES
 # the 33x33 search's forwards (phase general_shapes: one env, batch 1)
 SHAPES += [(1, 33, 64, torch.bfloat16, "split")]
 # the split variant (one sample over a thread-block cluster) is held
@@ -198,16 +203,6 @@ SHAPES += [(1, 33, 64, torch.bfloat16, "split")]
 # replaced_ms; a row that dispatches split must be the faster) and at
 # these rows of other variants, where it is timed beside them
 SPLIT_ALSO = {(64, 6, 8)} | {(b, 19, 128) for b in EVAL_BATCHES}
-# host µs a call of the small-batch rows before this variant, the
-# wrapper's per-call cudaFuncSetAttribute and checks (the resident and
-# streaming kernels then ran these rows), by this script on an H100 80GB
-# HBM3 at 700 W: each row gives it as host_us_before
-HOST_US_BEFORE = {(1, 15, 64): 24.9, (2, 15, 64): 44.9, (4, 15, 64): 35.8,
-                  (8, 15, 64): 24.4, (16, 15, 64): 37.7,
-                  (1, 19, 128): 54.0, (2, 19, 128): 58.8, (4, 19, 128): 47.9,
-                  (8, 19, 128): 48.0, (16, 19, 128): 48.1,
-                  (1, 15, 256): 282.4, (1, 240, 72): 16283.3,
-                  (64, 6, 8): 39.6}
 GENERAL_ROW = (2048, 15, 256)
 SPLIT_ROW = (1, 19, 128)   # the split row the kernels line shows
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
@@ -448,8 +443,6 @@ def phase_kernel_vs_plain():
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         if (b, s, c) in STREAMING_BEFORE_MS:  # ms includes the tap pack
             row["before_ms"] = STREAMING_BEFORE_MS[(b, s, c)]
-        if (b, s, c) in HOST_US_BEFORE:
-            row["host_us_before"] = HOST_US_BEFORE[(b, s, c)]
         if kind == "split" or (b, s, c) in SPLIT_ALSO:
             split_vs_replaced(row, kind, x, w1, b1, w2, b2)
         emit("kernel_vs_plain", **row, ok=True)
@@ -2588,7 +2581,7 @@ def main() -> int:
         "split_shape": {k: split_row[k] for k in (
             "batch", "board", "channels", "variant", "cluster_size",
             "max_abs_err", "ms", "replaced", "replaced_ms",
-            "host_us_per_call", "host_us_before", "plain_ms", "bound_ms",
+            "host_us_per_call", "plain_ms", "bound_ms",
             "bound_by", "share_of_bound", "library_ms")},
         "general_shape": {k: general_row[k] for k in (
             "batch", "board", "channels", "variant", "max_abs_err", "ms",
