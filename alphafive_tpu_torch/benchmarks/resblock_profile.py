@@ -1,7 +1,7 @@
 """Where a resblock kernel spends each sample, in SM clock cycles.
 
     python -m alphafive_tpu_torch.benchmarks.resblock_profile [--ablate NAME]
-        [--source PATH]
+        [--source PATH] [--variant NAME]
 
 Builds an instrumented copy of ``csrc/resblock.cu`` into
 ``build/kernels/profile/`` and runs the bf16 kernels at their chip_smoke
@@ -11,8 +11,8 @@ resident (2,048 × 15×15 and 9×9 × 64), streaming (2,048 × 19×19 × 96 and
 (2,048 × 15×15 × 256 and 2,048 × 21×21 × 64); then one sample of each
 (1 × 15×15 × 64 resident, 1 × 19×19 × 128 streaming, 1 × 15×15 × 256
 general) and the split variant at 1 × 15×15 × 64, 1 × 19×19 × 128, 1 ×
-15×15 × 256, 8 × 19×19 × 128, 16 × 15×15 × 64, 1 × 33×33 × 64 and 1 ×
-240×240 × 72 (y in the workspace). In the copy, every
+15×15 × 256, 8 and 16 × 19×19 × 128, 16 × 15×15 × 64, 1 × 33×33 × 64 and
+1 × 240×240 × 72 (y in the workspace). In the copy, every
 line ``// stamp: K`` of the source becomes a ``clock64()`` stamp K of
 thread 0 of block 0, kept for its first 16 samples (K may be an
 expression), and ``// launch stamp: K`` one of block 0 into sample 0's
@@ -30,22 +30,32 @@ epilogue: y over x, conv 2 started at b2 + x), 11-19 (conv 2's taps), 20-22
 (conv 2 drained, the output epilogue, the copy-out fused with the next
 x's loads); for the general kernel stamps 0-4 (conv 1's K loops with every
 epilogue but the last tile's, that epilogue, the same two for conv 2); for
-split 0 (y zeroed), 1-2 (conv 1's K loops, its last epilogue), 5 (the
-cluster barrier), 6 (the gather), 3-4 (conv 2's), 31 (the wait for the
-peers).
+split (rank 0 of cluster 0) 8 (the mbarriers initialised), 9 (y's
+window zeroed, the push bytes expected), 6 (the first cluster barrier's
+arrive), 10 (x's window requested), 7 (the first weight rows requested),
+0 (x's window landed: conv 1 starts), 1 (conv 1's K loop drained), 2
+(its epilogue, y written, and the first cluster barrier's wait), 5 (the
+pushes issued and the peers' y landed on the `ybar` wait), 3 (conv 2's
+K loop drained), 4 (the output epilogue and copy-out), 31 (the second
+cluster barrier's wait); on its workspace path (240×240) 8, 0, 1 (every
+conv 1 tile), 2 (the cluster barrier), 4, 31.
 
 ``--ablate NAME`` (repeatable) also deletes the line after each
 ``// ablate: NAME``: the streaming kernel's tap ``bulk`` copy (and the
 bytes its `full` barrier expects), the producer's ``empty`` wait (a
-stage refilled before every warp released it), and the copy-out's output
-``store`` and next-x load (``xload``); the general kernel's
-``mma`` (the tensor-core products), ``copies`` (the ring's cp.async),
-``epilogue`` and its K step's ``barrier`` (split runs the same K loop).
-The results are then wrong, and only the timing is read.
+stage refilled before every warp released it; split's ring too), and the
+copy-out's output ``store`` and next-x load (``xload``); the general and
+split kernels' ``mma`` (the tensor-core products) and ``copies`` (their
+rings' copies: general's cp.async, split's tensor-map copies and the
+bytes their `full` barriers expect), general's ``epilogue`` and K step
+``barrier``, and split's ``push`` (the bulk copies of y to the peers,
+and the bytes each `ybar` expects). The results are then wrong, and only
+the timing is read.
 
 ``--source PATH`` profiles another copy of the source instead (a step's
 ``csrc/resblock.cu``, say, so that one call to the card compares the
-two); it must have ``alphafive_resblock_as``.
+two); it must have ``alphafive_resblock_as``. ``--variant NAME`` profiles
+only that variant's shapes.
 """
 
 from __future__ import annotations
@@ -73,11 +83,11 @@ SHAPES = [(2048, 15, 64, "resident"), (2048, 9, 64, "resident"),
           (2048, 21, 64, "general"), (1, 15, 64, "resident"),
           (1, 19, 128, "streaming"), (1, 15, 256, "general"),
           (1, 15, 64, "split"), (1, 19, 128, "split"), (1, 15, 256, "split"),
-          (8, 19, 128, "split"), (16, 15, 64, "split"), (1, 33, 64, "split"),
-          (1, 240, 72, "split")]
+          (8, 19, 128, "split"), (16, 19, 128, "split"),
+          (16, 15, 64, "split"), (1, 33, 64, "split"), (1, 240, 72, "split")]
 CODES = {"streaming": 0, "resident": 1, "general": 4, "split": 5}
 ABLATIONS = ("bulk", "empty", "store", "xload", "barrier", "mma", "copies",
-             "epilogue")
+             "epilogue", "push")
 SAMPLES, STAMPS = 16, 32
 PRELUDE = f"""
 __device__ long long resblock_stamps[{SAMPLES}][{STAMPS}];
@@ -217,6 +227,8 @@ def main(argv=None) -> int:
     p.add_argument("--ablate", action="append", default=[],
                    choices=ABLATIONS)
     p.add_argument("--source", default=SOURCE)
+    p.add_argument("--variant", choices=sorted(CODES),
+                   help="profile only this variant's shapes")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("resblock_profile: CUDA is not available")
@@ -226,6 +238,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     for b, s, c, kind in SHAPES:
+        if args.variant and kind != args.variant:
+            continue
         print(json.dumps({**profile(lib, b, s, c, kind),
                           "ablate": args.ablate,
                           "source": os.path.relpath(args.source),

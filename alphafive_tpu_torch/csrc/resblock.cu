@@ -152,38 +152,51 @@
 //   split (bf16, C a multiple of 8, batches below kSplitBelow* of the
 //     variant the shape takes otherwise): the small batches of cli play,
 //     cli eval and the ladder eval (1 to 16 samples).
-//     * What bounds a batch-1 block: not the card's rates (1 x 19x19 x 128
-//       is 0.21 GFLOP and 0.78 MB: 0.23 us) but latency, on one SM. The
-//       persistent kernels give a CTA whole samples, so at batch 1 one SM
-//       of 132 stages every tap and runs every product: 17,930 of the
-//       resident kernel's 30,047 cycles stage its 147 KB of taps; general
-//       runs 1 x 15x15 x 256 (531 MFLOP) in 517,276 cycles
-//       (benchmarks/resblock_profile.py, batch-1 stamps).
+//     * What bounds a small batch: not the card's rates (1 x 19x19 x 128
+//       is 0.21 GFLOP and 0.78 MB: 0.23 us) but latency. The persistent
+//       kernels give a CTA whole samples, so one SM of 132 would stage
+//       every tap and run every product of a sample.
 //     * One sample a cluster of K = 2..16 CTAs (cluster_size: enough for
-//       the sample's tiles, halved while the batch's clusters would hold
-//       more than half the SMs: a cluster's CTAs share a GPC, and the H100
-//       runs 7 clusters of 16 at once, 15 of 8). general's implicit GEMM
-//       (mma.sync from ldmatrix, the cp.async weight ring, slabs) in tiles
-//       of 64 pixels x 64 channels, tile t to rank t mod K, so each SM
-//       streams only its tiles' taps from L2 and runs a K-th of the
-//       products.
-//     * Conv 1's y tiles stay in their CTA's shared memory, rounded to
-//       bf16 where the Pallas kernel rounds, in a whole-sample y laid out
-//       alike in every rank. After a release/acquire cluster barrier each
-//       rank gathers the rows its conv 2 tiles read (its bands and the w
-//       + 1 rows either side, all C channels) from the ranks that wrote
-//       them, 16 B at a time over distributed shared memory (mapa,
-//       ld.shared::cluster), then runs conv 2 in place with the residual
-//       from x. A second barrier's arrive follows the gather and its wait
-//       ends the kernel, so no CTA exits while a peer reads its y. Where y
-//       of a sample does not fit (240x240 x 72: 8.3 MB) it goes through
-//       the workspace, the cluster barrier ordering its stores.
-//     * What is left is the K loop's latency: ~1,100 cycles a step of 16
-//       mma.sync a warp (a 64 x 64 x 64 tile step), of which the products
-//       and their ldmatrix ~470, the block barrier ~200, the copies ~150.
+//       the sample's tiles of 64 positions, halved while the batch's
+//       clusters would hold more than half the SMs: a cluster's CTAs
+//       share a GPC). Each rank takes one tile: a band of 48, 64, 96 or
+//       192 positions of the h x (w + 1) grid (the shortest whose tiles
+//       the ranks hold one each: 16 bands of 48 at 19x19 x 128 and 16
+//       ranks, 8 of 96 at 8 ranks, 4 of 192 at 4) x 64 output channels.
+//     * The products are the resident kernel's layout on wgmma: M = the
+//       tile's 64 output channels (the weights, MN-major A), N = half the
+//       band a warpgroup, K = 64 input channels of one tap; x and y in
+//       channel-chunk planes over the grid, so each tap's B is one run of
+//       rows read at a shifted row, no copies. Each rank holds x's and
+//       y's windows: every row its band's taps read, every plane.
+//     * A K step is one tap row of one 64-channel block: 12 products a
+//       warpgroup into 4 (or 2) independent accumulator sets. Thread 0
+//       moves the step's three 64 x 64 weight slices by one tensor-map
+//       copy (3-D map over w, 128-byte swizzle, zeros past C) into a
+//       3-stage ring of full/empty mbarriers; no block barrier a step. A
+//       step is a tap row, not a tap, because the ring costs ~450 cycles
+//       a step even with no products (resblock_profile --ablate mma).
+//     * After conv 1's epilogue (y rounded to bf16 into y's window, acc
+//       restarted at b2 + x) each rank pushes the rows of its y that the
+//       other tiles' windows reach (push_rows: its band's overlap with
+//       theirs, 8 planes) by bulk copies into their y windows, completing
+//       on their `ybar`; conv 2 waits on its own. Two cluster barriers:
+//       the set-up (peers' barriers and zeroed windows) before any push,
+//       and every copy into a rank landed before any rank exits.
+//     * Where the tiles outnumber the ranks or the windows do not fit
+//       (240x240 x 72), bands of 192 go through the workspace: each K
+//       step's window is one tap row of 8 planes loaded between two block
+//       barriers, y written to the workspace, a cluster barrier between
+//       the convs.
+//     * What is left (resblock_profile, 1 x 19x19 x 128, ~21,500 cycles
+//       a rank): the K loops ~12,400 (~1,080 cycles a step against ~290
+//       of tensor-core time), the set-up ~5,500 (barriers, zeroing, x's
+//       window by cp.async, ~1,750 of it), the push and its wait ~2,000.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -340,6 +353,65 @@ __device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint64_t da,
       "%15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, "
       "0;\n}\n"
       : WGMMA_OUT8(0), WGMMA_OUT8(8), WGMMA_OUT8(16)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x N] += A[64 x 16] * B[16 x N] with A MN-major (transposed) and B
+// K-major, both from shared-memory descriptors: the split variant's
+// products, N = half a band (24, 32, 48 or 96 positions).
+template <int N>
+__device__ __forceinline__ void wgmma_t(float (&d)[N / 2], uint64_t da,
+                                        uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_t<24>(float (&d)[12], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, "
+      "1, 1, 0;\n}\n"
+      : WGMMA_OUT8(0), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_t<32>(float (&d)[16], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : WGMMA_OUT8(0), WGMMA_OUT8(8)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_t<48>(float (&d)[24], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 1, "
+      "0;\n}\n"
+      : WGMMA_OUT8(0), WGMMA_OUT8(8), WGMMA_OUT8(16)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_t<96>(float (&d)[48], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 1, 0;\n}\n"
+      : WGMMA_OUT8(0), WGMMA_OUT8(8), WGMMA_OUT8(16), WGMMA_OUT8(24),
+        WGMMA_OUT8(32), WGMMA_OUT8(40)
       : "l"(da), "l"(db), "r"(1));
 }
 #undef WGMMA_OUT8
@@ -1219,18 +1291,17 @@ __host__ __device__ constexpr int ring_bytes(int elem) {
 // the 8 rows of one ldmatrix stay in 8 bank groups (see conv).
 constexpr int kZeroRows = 3;
 // An A slab: BK channels (rows padded by 16 B) of the pixel rows one M
-// tile of m pixels (bm(elem); the split variant's 64) reaches with its
-// taps, then the zero rows. span 3: the rows of all three tap rows (m +
-// 2w + 2, at most h*w), one slab for the 9 taps of a channel block; span
-// 1, for boards too wide for that: one tap row's m + 2 rows, a slab for
-// each 3 taps.
-__host__ __device__ constexpr int slab_rows(int h, int w, int span, int elem,
-                                            int m) {
-  return imin(m + (span == 3 ? 2 * w + 2 : 2), h * w) + kZeroRows;
+// tile's taps reach, then the zero rows. span 3: the rows of all three tap
+// rows (BM + 2w + 2, at most h*w), one slab for the 9 taps of a channel
+// block; span 1, for boards too wide for that: one tap row's BM + 2 rows,
+// a slab for each 3 taps.
+__host__ __device__ constexpr int slab_rows(int h, int w, int span,
+                                            int elem) {
+  return imin(bm(elem) + (span == 3 ? 2 * w + 2 : 2), h * w) + kZeroRows;
 }
-__host__ __device__ constexpr int slab_bytes(int h, int w, int span, int elem,
-                                             int m) {
-  return slab_rows(h, w, span, elem, m) * (bk(elem) + chunk(elem)) * elem;
+__host__ __device__ constexpr int slab_bytes(int h, int w, int span,
+                                             int elem) {
+  return slab_rows(h, w, span, elem) * (bk(elem) + chunk(elem)) * elem;
 }
 // Slabs: two (one read, the next landing), or one where a tile reads a
 // single slab (span 3 and C <= BK) and conv 2's residual tile fits in it.
@@ -1239,12 +1310,12 @@ __host__ __device__ constexpr int slab_slots(int c, int span, int elem) {
 }
 // The ring and the slabs.
 __host__ __device__ constexpr int base_bytes(int h, int w, int c, int span,
-                                             int elem, int m) {
+                                             int elem) {
   return ring_bytes(elem) +
-         slab_slots(c, span, elem) * slab_bytes(h, w, span, elem, m);
+         slab_slots(c, span, elem) * slab_bytes(h, w, span, elem);
 }
-__host__ __device__ constexpr int span(int h, int w, int c, int elem, int m) {
-  return base_bytes(h, w, c, 3, elem, m) <= kSmemLimit ? 3 : 1;
+__host__ __device__ constexpr int span(int h, int w, int c, int elem) {
+  return base_bytes(h, w, c, 3, elem) <= kSmemLimit ? 3 : 1;
 }
 // y's row: C rounded up to 8 chunks, plus one chunk. A row of 1 mod 8
 // 16 B chunks puts 8 consecutive rows of one ldmatrix (or of one float4
@@ -1262,46 +1333,33 @@ __host__ __device__ constexpr long long y_bytes(int h, int w, int c,
 }
 
 // y of one sample in shared memory beside the ring and slabs, or not
-__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem,
-                                             int m) {
-  return base_bytes(h, w, c, span(h, w, c, elem, m), elem, m) +
+__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem) {
+  return base_bytes(h, w, c, span(h, w, c, elem), elem) +
              y_bytes(h, w, c, elem) <=
          kSmemLimit;
 }
 
-__host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem,
-                                             int m) {
-  return base_bytes(h, w, c, span(h, w, c, elem, m), elem, m) +
-         (y_in_smem(h, w, c, elem, m) ? (int)y_bytes(h, w, c, elem) : 0);
-}
-
-// The same for the general variant's tiles of bm(elem) pixels.
-__host__ __device__ constexpr bool y_in_smem(int h, int w, int c, int elem) {
-  return y_in_smem(h, w, c, elem, bm(elem));
-}
 __host__ __device__ constexpr int smem_bytes(int h, int w, int c, int elem) {
-  return smem_bytes(h, w, c, elem, bm(elem));
+  return base_bytes(h, w, c, span(h, w, c, elem), elem) +
+         (y_in_smem(h, w, c, elem) ? (int)y_bytes(h, w, c, elem) : 0);
 }
 
-// The tiles of element type T, kTileM pixels by BN channels (bf16: any
-// multiple of 64; f32: bm(4) only).
-template <typename T, int kTileM = bm(sizeof(T))>
+// The tiles of element type T.
+template <typename T>
 struct Tile {
   static constexpr int kElem = sizeof(T), kChunk = 16 / kElem;
   static constexpr int kBK = bk(kElem), kStages = stages(kElem);
-  static constexpr int kBM = kTileM, kWarpM = kBM / kWarpsM;
+  static constexpr int kWarpM = warp_m(kElem), kBM = bm(kElem);
   static constexpr int kAStride = kBK + kChunk, kBStride = BN + kChunk;
   static constexpr int kRStride = BN + kChunk;  // conv 2's residual tile
   static constexpr int kBElems = kBK * kBStride;  // one ring stage
   static constexpr int kACols = kBK / kChunk;  // 16 B chunks of a slab row
   static constexpr int kBCols = BN / kChunk;
   static constexpr int kBChunks = kBK * kBCols / kThreads;  // per thread
-  // A rows one lane reads: the warp's m16 fragments (bf16: 4 at BM =
-  // 256, 1 at 64) or 4 pixels (f32)
-  static constexpr int kRows = kElem == 2 ? kWarpM / 16 : 4;
-  static constexpr int kAcc = kElem == 2 ? 16 * kRows : 32;  // accumulators
+  // A rows one lane reads: 4 m16 fragments (bf16) or 4 pixels (f32)
+  static constexpr int kRows = 4;
+  static constexpr int kAcc = kElem == 2 ? 64 : 32;  // accumulators
   static_assert(kStages * kBElems * kElem == ring_bytes(kElem), "ring");
-  static_assert(kElem == 2 ? kWarpM % 16 == 0 : kBM == bm(kElem), "tile");
 };
 
 template <typename T>
@@ -1368,16 +1426,16 @@ struct View {
 // The residual (conv 2) is x in device memory, or its tile in shared
 // memory. The bias is read once, and every residual load is issued
 // before the first is used.
-template <typename T, int kTileM, bool kSecond>
-__device__ __forceinline__ void epilogue(
-    const float (&acc)[Tile<T, kTileM>::kAcc], T* dst, int ld,
-    const float* __restrict__ bias, View<const T> res, int p0, int ch0,
-    int hw, int c) {
+template <typename T, bool kSecond>
+__device__ __forceinline__ void epilogue(const float (&acc)[Tile<T>::kAcc],
+                                         T* dst, int ld,
+                                         const float* __restrict__ bias,
+                                         View<const T> res, int p0, int ch0,
+                                         int hw, int c) {
   constexpr bool kMma = sizeof(T) == 2;
   constexpr int kRun = kMma ? 2 : 4;   // channels of a run
   constexpr int kRuns = kMma ? 4 : 2;  // runs of the lane at a pixel
-  // pixels of the lane: two a fragment (bf16)
-  constexpr int kPix = kMma ? 2 * Tile<T, kTileM>::kRows : 4;
+  constexpr int kPix = kMma ? 8 : 4;   // pixels of the lane
   const int lane = threadIdx.x & 31;
   // bf16 fragment (i, j): pixels 16 i + g (+ 8), channels 8 j + 2 t (+ 1);
   // f32: pixels tr + 8 i, channels 4 tc + 16 hf + [0, 4)
@@ -1463,22 +1521,20 @@ __device__ __forceinline__ void epilogue(
 // with A the sample's activations [h*w][c], read in place by the products:
 // from y in shared memory (kDirect: conv 2 where y fits; stride y_stride,
 // zero rows after it), or from slabs copied out of device memory (src: x,
-// or y in the workspace). Output tiles of kTileM pixels x BN channels,
-// numbered pixels outer; this CTA runs tiles first, first + step, ... (the
-// general variant all, from 0 by 1; a rank of the split variant's cluster
-// every ranks-th). Each runs ceil(C / BK) channel blocks x 9 taps, one K
-// step each, one block barrier a step. The weights of step s + stages - 1
-// are copied at step s; the next slab in parts over the first steps of a
-// slab's turn (cp.async groups complete in order, so each part has stages
-// - 1 steps to land). kDirect leaves the slabs free: conv 2's residual
-// tile lands there during the K loop. b: the sample (read by
+// or y in the workspace). Output tiles of BM pixels x BN channels, pixels
+// outer; each runs ceil(C / BK) channel blocks x 9 taps, one K step each,
+// one block barrier a step. The weights of step s + stages - 1 are copied
+// at step s; the next slab in parts over the first steps of a slab's turn
+// (cp.async groups complete in order, so each part has stages - 1 steps
+// to land). kDirect leaves the slabs free: conv 2's residual tile lands
+// there during the K loop. b: the sample (read by
 // benchmarks/resblock_profile.py's stamps).
-template <typename T, int kTileM, bool kSecond, bool kDirect>
+template <typename T, bool kSecond, bool kDirect>
 __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
                      const float* __restrict__ bias, const T* x, T* dst,
                      int ld, int h, int w, int c, int span, T* ring, T* slabs,
-                     int b, int first, int step) {
-  using G = Tile<T, kTileM>;
+                     int b) {
+  using G = Tile<T>;
   constexpr bool kMma = sizeof(T) == 2;
   constexpr int BK = G::kBK;
   static_assert(2 * G::kAStride >= G::kRStride, "the residual tile fits");
@@ -1489,7 +1545,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
   const int hw = h * w, kcb = (c + BK - 1) / BK, steps = 9 * kcb;
   const bool vec = c % G::kChunk == 0;  // 16 B copies (cp.async)
   const int a_ld = kDirect ? y_stride(c, G::kElem) : G::kAStride;
-  const int srows = slab_rows(h, w, span, G::kElem, G::kBM);
+  const int srows = slab_rows(h, w, span, G::kElem);
   const int zrow = kDirect ? hw : srows - kZeroRows;  // the first zero row
   // steps over which the next slab is copied: each part lands within
   // stages - 1 steps, before the slab's turn
@@ -1502,13 +1558,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
   const int acol = tid % G::kACols * G::kChunk, arow0 = tid / G::kACols;
   const int bcol = tid % G::kBCols * G::kChunk, brow0 = tid / G::kBCols;
 
-  const int ntn = (c + BN - 1) / BN;  // channel tiles of a pixel band
-  const int tiles = (hw + G::kBM - 1) / G::kBM * ntn;
-  // j: this CTA's first tile of a band it has tiles in; the next such j
-  // is its first tile past the band (bands without one are not visited)
-  for (int j = first; j < tiles;
-       j += (j / ntn * ntn + ntn - j + step - 1) / step * step) {
-    const int m0 = j / ntn * G::kBM;
+  for (int m0 = 0; m0 < hw; m0 += G::kBM) {
     // the lane's A rows: pixel p's offset in A's buffer, which of the 9
     // taps lie on the board (bit t; none past the sample), and where in
     // the zero rows it reads off the board: chunk (p - zrow) mod 8, plus
@@ -1543,7 +1593,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
         stage_chunk(sl + row * G::kAStride, from + row * c, src, true,
                     c - ch, vec);
     };
-    for (int n0 = j % ntn * BN; n0 < c; n0 += step * BN) {
+    for (int n0 = 0; n0 < c; n0 += BN) {
       // warps whose whole tile lies past the sample or past C only copy
       const bool active = m0 + wm0 < hw && n0 + wn0 < c;
       float acc[G::kAcc];
@@ -1578,10 +1628,9 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
       };
 
       __syncthreads();  // every warp is done with the last tile's smem
-      if (!kDirect && m0 / G::kBM * ntn + n0 / BN == first) {
-        // at this CTA's first tile, the slabs' zero rows (conv 2's
-        // residual tile may have covered them); the barrier of step 0
-        // publishes them
+      if (!kDirect && m0 == 0 && n0 == 0) {
+        // the slabs' zero rows (conv 2's residual tile may have covered
+        // them); the barrier of step 0 publishes them
         constexpr int kZero = kZeroRows * G::kAStride;
         for (int i = tid; i < slab_slots(c, span, G::kElem) * kZero;
              i += kThreads)
@@ -1633,11 +1682,11 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
             // ldmatrix, B by ldmatrix .trans, the next k16's fragments
             // loaded under this one's MMAs
             const int nk = imin(BK, c - cb * BK + 15) / 16;
-            uint32_t a[2][G::kRows][4], bf[2][4][2];
+            uint32_t a[2][4][4], bf[2][4][2];
             auto fragments = [&](int kk, int buf) {
               const int ka = 16 * kk + (lane >> 4) * 8;
 #pragma unroll
-              for (int i = 0; i < G::kRows; ++i)
+              for (int i = 0; i < 4; ++i)
                 ldmatrix_x4(a[buf][i], smem_u32(ab + aoff[i] + ka));
 #pragma unroll
               for (int jn = 0; jn < 2; ++jn) {
@@ -1658,7 +1707,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
               if (kk + 1 < BK / 16 && kk + 1 < nk)
                 fragments(kk + 1, (kk + 1) & 1);
 #pragma unroll
-              for (int i = 0; i < G::kRows; ++i)
+              for (int i = 0; i < 4; ++i)
 #pragma unroll
                 for (int j = 0; j < 4; ++j) {
                   // ablate: mma
@@ -1712,8 +1761,7 @@ __device__ void conv(const T* src, const T* ys, const T* __restrict__ wt,
           kDirect ? View<const T>{slabs, G::kRStride, m0, n0}
                   : View<const T>{x, c, 0, 0};
       // ablate: epilogue
-      epilogue<T, kTileM, kSecond>(acc, dst, ld, bias, res, m0 + wm0,
-                                   n0 + wn0, hw, c);
+      epilogue<T, kSecond>(acc, dst, ld, bias, res, m0 + wm0, n0 + wn0, hw, c);
     }
   }
 }
@@ -1727,13 +1775,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(16) unsigned char smem_general[];
   // launch stamp: 30
   using G = Tile<T>;
-  constexpr int kElem = sizeof(T), BM = G::kBM;
-  const int sp = span(h, w, c, kElem, BM);
-  const int srows = slab_rows(h, w, sp, kElem, BM);
+  constexpr int kElem = sizeof(T);
+  const int sp = span(h, w, c, kElem), srows = slab_rows(h, w, sp, kElem);
   T* ring = reinterpret_cast<T*>(smem_general);
   T* slabs = ring + G::kStages * G::kBElems;
   const size_t sample = (size_t)h * w * c;
-  if (y_in_smem(h, w, c, kElem, BM)) {
+  if (y_in_smem(h, w, c, kElem)) {
     T* ys = slabs + slab_slots(c, sp, kElem) * srows * G::kAStride;
     // the padding channels and the zero rows are read, never written; the
     // first tile's barrier publishes the zeros
@@ -1743,11 +1790,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int b = blockIdx.x; b < nb; b += gridDim.x) {
       const T* xb = x + b * sample;
       // stamp: 0
-      conv<T, BM, false, false>(xb, nullptr, w1, b1, xb, ys, ld, h, w, c,
-                                sp, ring, slabs, b, 0, 1);
+      conv<T, false, false>(xb, nullptr, w1, b1, xb, ys, ld, h, w, c, sp,
+                            ring, slabs, b);
       // stamp: 2
-      conv<T, BM, true, true>(nullptr, ys, w2, b2, xb, out + b * sample, c,
-                              h, w, c, sp, ring, slabs, b, 0, 1);
+      conv<T, true, true>(nullptr, ys, w2, b2, xb, out + b * sample, c, h, w,
+                          c, sp, ring, slabs, b);
       // stamp: 4
     }
     // launch stamp: 31
@@ -1756,10 +1803,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* ys = workspace + blockIdx.x * sample;  // this CTA's y, stride C
   for (int b = blockIdx.x; b < nb; b += gridDim.x) {
     const T* xb = x + b * sample;
-    conv<T, BM, false, false>(xb, nullptr, w1, b1, xb, ys, c, h, w, c, sp,
-                              ring, slabs, b, 0, 1);
-    conv<T, BM, true, false>(ys, nullptr, w2, b2, xb, out + b * sample, c, h,
-                             w, c, sp, ring, slabs, b, 0, 1);
+    conv<T, false, false>(xb, nullptr, w1, b1, xb, ys, c, h, w, c, sp, ring,
+                          slabs, b);
+    conv<T, true, false>(ys, nullptr, w2, b2, xb, out + b * sample, c, h, w,
+                         c, sp, ring, slabs, b);
   }
   // launch stamp: 31
 }
@@ -1767,29 +1814,92 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace general
 
 // ---------------------------------------------------------------------------
-// split: bf16, one sample spread over the CTAs of a thread-block cluster
+// split: bf16, one sample spread over the CTAs of a thread-block cluster,
+// wgmma on each rank's tile, the taps by an mbarrier ring, y pushed to the
+// peers
 
 namespace split {
 
 using T = __nv_bfloat16;
-constexpr int BM = 64;           // pixels of an output tile
 constexpr int kClusterMax = 16;  // CTAs of a cluster (above 8: non-portable)
+constexpr int BM = 64;           // the band cluster_size counts tiles in
+constexpr int kBands = 4;        // band lengths, band_at(0 .. kBands - 1)
+constexpr int kBandMax = 192;    // the longest band, and the workspace path's
+constexpr int kStages = 3;       // ring stages: a tap row's 64 x 64 slices
+constexpr int kStageBytes = 3 * 64 * 64 * 2;
+constexpr int kBarBytes = 128;   // full and empty a stage, y's: 7 x 8 B
+static_assert(8 * (2 * kStages + 1) <= kBarBytes, "the barriers fit");
 
-// Output tiles of one sample: bands of BM pixels x 64-channel groups,
-// dealt to the cluster's ranks in turn (tile t to rank t mod K).
-__host__ __device__ constexpr int tiles(int h, int w, int c) {
-  return (h * w + BM - 1) / BM * ((c + general::BN - 1) / general::BN);
+// Positions of a band, shortest first: a warpgroup takes half of one
+// (wgmma N = 24, 32, 48 or 96).
+__host__ __device__ constexpr int band_at(int i) {
+  return i == 0 ? 48 : i == 1 ? 64 : i == 2 ? 96 : kBandMax;
 }
-__host__ __device__ constexpr bool y_in_smem(int h, int w, int c) {
-  return general::y_in_smem(h, w, c, 2, BM);
+// 64-channel groups (M tiles and K blocks), and 16 B chunk planes, 8 a
+// group (the planes past C hold zeros: every K step is 4 k16 products,
+// with no branch between them).
+__host__ __device__ constexpr int groups(int c) { return (c + 63) / 64; }
+__host__ __device__ constexpr int planes(int c) { return groups(c) * 8; }
+// Output positions of the h x (w + 1) grid (column w is the zero border).
+__host__ __device__ constexpr int cells(int h, int w) { return h * (w + 1); }
+// Tiles of one sample: bands of n positions x 64-channel groups.
+__host__ __device__ constexpr int tiles(int h, int w, int c, int n = BM) {
+  return (cells(h, w) + n - 1) / n * groups(c);
 }
-__host__ __device__ constexpr int smem_bytes(int h, int w, int c) {
-  return general::smem_bytes(h, w, c, 2, BM);
+// A buffer's rows: `used` and one junk row (the last), rounded to 1 mod
+// 8 so that consecutive chunk planes start in different banks.
+__host__ __device__ constexpr int rows(int used) {
+  return (used + 7) / 8 * 8 + 1;
 }
-// The shapes it takes: whole 16 B chunks of channels, so that y moves
-// between ranks 16 B at a time.
+// The window of a band of n: every row its 9 taps read.
+__host__ __device__ constexpr int window_rows(int n, int w) {
+  return rows(n + 2 * (w + 1) + 2);
+}
+// Push path: the barriers, the ring, x's and y's windows of every plane.
+__host__ __device__ constexpr int push_smem(int n, int w, int c) {
+  return kBarBytes + kStages * kStageBytes +
+         2 * planes(c) * window_rows(n, w) * 16;
+}
+// Workspace path (bands of kBandMax): the barriers, the ring, a window
+// of one tap row and 8 planes, and the tile's staging rows.
+__host__ __device__ constexpr int ws_smem() {
+  return kBarBytes + kStages * kStageBytes +
+         8 * (rows(kBandMax + 2) + rows(kBandMax)) * 16;
+}
+// The band of a cluster of k: the shortest whose tiles are no more than
+// the ranks, one a rank (kBandMax where none is).
+__host__ __device__ constexpr int band(int k, int h, int w, int c) {
+  for (int i = 0; i < kBands; ++i)
+    if (tiles(h, w, c, band_at(i)) <= k) return band_at(i);
+  return kBandMax;
+}
+// y stays in shared memory and moves by push: a tile a rank, and both
+// windows fit; else the workspace path.
+__host__ __device__ constexpr bool push(int k, int h, int w, int c) {
+  return tiles(h, w, c, band(k, h, w, c)) <= k &&
+         push_smem(band(k, h, w, c), w, c) <= kSmemLimit;
+}
+__host__ __device__ constexpr int smem_bytes(int k, int h, int w, int c) {
+  return push(k, h, w, c) ? push_smem(band(k, h, w, c), w, c) : ws_smem();
+}
+// The shapes it takes: whole 16 B chunks of channels (any board and C:
+// the workspace path's shared memory does not grow with either).
+static_assert(ws_smem() <= kSmemLimit, "the workspace path fits");
 __host__ __device__ constexpr bool fits(int h, int w, int c) {
-  return c % 8 == 0 && smem_bytes(h, w, c) <= kSmemLimit;
+  return c % 8 == 0;
+}
+
+// The push map. Tile t (rank t) holds y of band t / groups(c) (positions
+// [t / G n, t / G n + n)) in the chunk planes of its group t % G; tile u's
+// conv 2 reads the positions [u / G n - w - 2, u / G n + n + w + 2) of
+// every plane (its window). The positions of t's band in u's window:
+// the first at `lo`, their count returned (0: none).
+__host__ __device__ inline int push_rows(int t, int u, int n, int w, int c,
+                                         int& lo) {
+  const int ng = groups(c), a = t / ng * n, wa = u / ng * n - w - 2;
+  const int hi = a + n < wa + n + 2 * (w + 2) ? a + n : wa + n + 2 * (w + 2);
+  lo = a > wa ? a : wa;
+  return hi > lo ? hi - lo : 0;
 }
 
 __device__ __forceinline__ int cluster_rank() {
@@ -1815,122 +1925,487 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
-// 16 B of rank `rank`'s shared memory at this CTA's shared address `addr`
-// (distributed shared memory).
-__device__ __forceinline__ uint4 ld_peer16(uint32_t addr, int rank) {
+// Rank `rank`'s shared address of this CTA's shared address `addr`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote)
                : "r"(addr), "r"(rank));
-  uint4 v;
-  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(remote)
+  return remote;
+}
+// `bytes` of this CTA's shared memory into a peer's (dst, bar: its
+// shared::cluster addresses), counted against the peer's barrier.
+__device__ __forceinline__ void push_copy(uint32_t dst, uint32_t src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+// The box at (c0, c1, c2) of a 3-D tensor map into shared memory at dst,
+// counted against `bar`'s expected bytes as it lands.
+__device__ __forceinline__ void tensor_copy(uint32_t dst,
+                                           const CUtensorMap* map, int c0,
+                                           int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(bar)
+      : "memory");
+}
+// Waits for the phase of parity `parity` to complete, or traps after
+// ~2^32 cycles: a lost arrival fails the launch instead of hanging.
+__device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1LL << 32)) __trap();
+}
+__device__ __forceinline__ uint4 ld_shared16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
   return v;
 }
+__device__ __forceinline__ void st_shared_zero16(uint32_t addr) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(addr),
+               "r"(0)
+               : "memory");
+}
 
-// y's rows [lo, hi), all C channels, into this CTA's copy of y: every 16
-// B chunk that another rank's conv 1 tile wrote comes from that rank's
-// copy, at the same offset (every rank lays out its shared memory alike).
-// kBatch loads in flight a thread.
-template <int kTileM>
-__device__ void gather(T* ys, int ld, int lo, int hi, int c, int rank,
-                       int ranks) {
-  constexpr int kBatch = 4;
-  const int cpr = c / 8, ntn = (c + general::BN - 1) / general::BN;
-  const int n = (hi - lo) * cpr;
-  const uint32_t base = smem_u32(ys);
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
-    uint4 v[kBatch];
-    uint32_t off[kBatch];
-    bool take[kBatch];
+// An epilogue over this warp's accumulator fragments (wgmma's m64nNW
+// layout: acc 4j + 2f + e is channel 16 q + 8 f + lane / 4 of the tile's
+// group at position 8 j + 2 (lane % 4) + e of the warpgroup's half band),
+// pair k (fragments 2k, 2k + 1) moved by ldmatrix/stmatrix .trans through
+// the rows this lane addresses: at[k] (read) and at[k] + delta (written).
+//   conv 1 (!kSecond): y = bf16(relu(acc + add)); with kRes, x is read
+//     first and acc restarted at restart + x, which conv 2 accumulates
+//     onto (the residual costs no reload).
+//   conv 2 (kSecond): out = bf16(relu(acc + add (+ x, kRes))).
+template <int NW, bool kSecond, bool kRes>
+__device__ __forceinline__ void epilogue(float (&acc)[NW / 2],
+                                         const float (&add)[2],
+                                         const float (&restart)[2],
+                                         const uint32_t (&at)[(NW / 8 + 1) /
+                                                              2],
+                                         uint32_t delta) {
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const int i = i0 + k * kThreads;
-      const int p = lo + i / cpr, j = i % cpr;  // pixel, channel chunk
-      const int owner = (p / kTileM * ntn + j / 8) % ranks;
-      take[k] = i < n && owner != rank;
-      off[k] = (uint32_t)(p * ld + j * 8) * 2;
-      if (take[k]) v[k] = ld_peer16(base + off[k], owner);
+  for (int k = 0; k < (NW / 8 + 1) / 2; ++k) {
+    uint32_t v[4], xr[4];
+    if (kRes) ldmatrix_x4_trans(xr, at[k]);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int j = 2 * k + (m >> 1), f = m & 1;
+      if (j >= NW / 8) {
+        v[m] = 0;
+        continue;
+      }
+      float& lo = acc[4 * j + 2 * f];
+      float& hi = acc[4 * j + 2 * f + 1];
+      float2 xf = make_float2(0.f, 0.f);
+      if (kRes)
+        xf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&xr[m]));
+      if (kSecond) {
+        v[m] = pack_bf16(fmaxf(lo + add[f] + xf.x, 0.f),
+                         fmaxf(hi + add[f] + xf.y, 0.f));
+      } else {
+        v[m] = pack_bf16(fmaxf(lo + add[f], 0.f), fmaxf(hi + add[f], 0.f));
+        if (kRes) {
+          lo = restart[f] + xf.x;
+          hi = restart[f] + xf.y;
+        }
+      }
     }
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k)
-      if (take[k])
-        *reinterpret_cast<uint4*>(reinterpret_cast<unsigned char*>(ys) +
-                                  off[k]) = v[k];
+    stmatrix_x4_trans(at[k] + delta, v);
   }
 }
 
-// One sample a cluster: cluster b runs sample b, its rank r the tiles r,
-// r + K, ... of each conv (general::conv, tiles of kTileM pixels).
-template <int kTileM>
+// One sample a cluster (cluster b runs sample b). Each conv is, per tile
+// (a band of N = 2 NW grid positions x 64 output channels), out^T = sum
+// over taps and 64-channel blocks of W^T x^T: M = the group's 64 output
+// channels (the weight slice, MN-major A), N = the band's positions (B,
+// from channel-chunk planes over the grid, the tap a row shift), K = 64
+// input channels; warpgroup g takes half the band, positions [g NW, g NW
+// + NW), so both read one weight slice. (Each warpgroup taking half of K
+// over the whole band instead, its sums joined through shared memory,
+// read each 2 KB slice once rather than twice; measured, the K loops
+// gained 0-12% and the joins cost more at most shapes.)
+//
+// Push path (push(ranks, ...): a tile a rank, tile = rank; both windows
+// fit): x's
+// window (every plane, every row the band's taps read) lands by cp.async;
+// conv 1 from it; its epilogue writes y into the same rows of y's window
+// and restarts acc at b2 + x; the rows of y that other tiles' windows
+// reach go to them by bulk copies into their y windows, completing on
+// their `ybar`; conv 2 waits on its own `ybar`; the output is staged in
+// x's window and copied out. Cluster barriers: one whose arrive follows
+// the set-up (the peers' barriers and zeroed y windows before any copy)
+// and whose wait precedes the pushes, one whose arrive follows the wait
+// for the incoming y and whose wait ends the kernel (no CTA exits while a
+// copy reads its shared memory).
+//
+// Workspace path (NW = kBandMax / 2): tiles rank, rank + ranks, ...; each
+// conv's window is one tap row of 8 planes at a time (any board, any C);
+// y goes to the workspace (NHWC), a cluster barrier between the convs.
+//
+// The weights stream through a ring of kStages tap rows (3 x 8 KB of 64 x
+// 64 slices: a K step is one tap row of one 64-channel block, so that the
+// ring's fixed cost, some 450 cycles a step measured, is paid 3 C / 64
+// times a conv) for the whole launch (conv 1's tiles, then conv 2's), each
+// by one tensor-map copy that thread 0 issues on the stage's `full`
+// barrier; each warp releases a stage on its `empty` barrier once its
+// warpgroup's products have read it. No block barrier per K step.
+template <int NW>
 __global__ void __launch_bounds__(kThreads, 1)
-    kernel(const T* __restrict__ x, const T* __restrict__ w1,
-           const float* __restrict__ b1, const T* __restrict__ w2,
+    kernel(const T* __restrict__ x, const __grid_constant__ CUtensorMap wm1,
+           const float* __restrict__ b1,
+           const __grid_constant__ CUtensorMap wm2,
            const float* __restrict__ b2, T* __restrict__ out, T* workspace,
            int h, int w, int c) {
-  extern __shared__ __align__(16) unsigned char smem_split[];
+  constexpr int N = 2 * NW;
+  constexpr int kPairs = (NW / 8 + 1) / 2;
+  // Independent accumulator sets a warpgroup, product i of a step into set
+  // i % kSets: a product waits only for the last one into its set (12, 6
+  // or 3 sets measured no faster).
+  constexpr int kSets = NW <= 48 ? 4 : 2;
+  extern __shared__ __align__(1024) unsigned char smem_split[];
   // launch stamp: 30
-  using G = general::Tile<T, kTileM>;
   const int rank = cluster_rank(), ranks = cluster_ranks();
   const int b = cluster_index();  // the sample
-  const int sp = general::span(h, w, c, 2, kTileM);
-  const int srows = general::slab_rows(h, w, sp, 2, kTileM);
-  T* ring = reinterpret_cast<T*>(smem_split);
-  T* slabs = ring + G::kStages * G::kBElems;
+  const bool push_y = push(ranks, h, w, c);
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7;
+  const int q = (tid >> 5) & 3, hf = (lane >> 3) & 1;
+  const int pitch = w + 1, ncell = h * pitch, ng = groups(c), np = planes(c);
+  const int steps = 3 * ng;  // K steps of a tile's conv: tap rows x blocks
+  const int ntiles = (ncell + N - 1) / N * ng;
+  const int mine = rank < ntiles ? (ntiles - 1 - rank) / ranks + 1 : 0;
+  const int uses = 2 * mine * steps;  // of the ring, both convs
   const size_t sample = (size_t)h * w * c;
   const T* xb = x + b * sample;
   T* ob = out + b * sample;
-  if (general::y_in_smem(h, w, c, 2, kTileM)) {
-    T* ys = slabs + general::slab_slots(c, sp, 2) * srows * G::kAStride;
-    // the padding channels and the zero rows are read, never written; so
-    // are the rows this rank neither writes nor gathers
-    for (int i = threadIdx.x; i < general::y_bytes(h, w, c, 2) / 16;
-         i += kThreads)
-      reinterpret_cast<uint4*>(ys)[i] = make_uint4(0, 0, 0, 0);
-    const int ld = general::y_stride(c, 2);
-    // stamp: 0
-    general::conv<T, kTileM, false, false>(xb, nullptr, w1, b1, xb, ys, ld,
-                                           h, w, c, sp, ring, slabs, b, rank,
-                                           ranks);
-    // stamp: 2
-    cluster_arrive();
-    cluster_wait();  // every rank's y tiles written
-    // stamp: 5
-    // each band this rank's conv 2 tiles cover, with the w + 1 rows above
-    // and below that its taps reach
-    const int hw = h * w, ntn = (c + general::BN - 1) / general::BN;
-    const int count = (hw + kTileM - 1) / kTileM * ntn;
-    for (int t = rank, last = -1; t < count; t += ranks) {
-      const int band = t / ntn;
-      if (band == last) continue;
-      last = band;
-      gather<kTileM>(ys, ld, max(0, band * kTileM - w - 1),
-                     min(hw, (band + 1) * kTileM + w + 1), c, rank, ranks);
+  // the ring (1024 B aligned: the slices' swizzle), the buffers, the
+  // barriers
+  const uint32_t ring = smem_u32(smem_split);
+  if (ring & 1023) __trap();
+  const uint32_t buf = ring + kStages * kStageBytes;
+  const uint32_t bars = ring + smem_bytes(ranks, h, w, c) - kBarBytes;
+  const uint32_t full = bars, empty = bars + 8 * kStages;
+  const uint32_t ybar = bars + 16 * kStages;
+
+  // The ring's uses, in order: conv 1's steps for each of this rank's
+  // tiles (rank, rank + ranks, ...), then conv 2's; a tile's steps are its
+  // channel blocks x 3 tap rows. Thread 0 loads use lv (its tile's group
+  // lg, channel block lcb, tap row lt: no division) as three 64 x 64
+  // weight slices (Cin rows of 64 Cout, zeros past C) into stage lv %
+  // kStages by one tensor-map copy, 128-byte swizzled (the MN-major A of
+  // sw128_desc), once every warp has released the stage's previous use.
+  // (A producer warp of its own, measured, lengthened the set-up more than
+  // it shortened the K loops.)
+  const int g0 = rank % ng, dg = ranks % ng;
+  int lv = 0, lt = 0, lcb = 0, lk = 0, lg = g0;
+  auto load_next = [&]() {
+    if (tid != 0 || lv >= uses) return;
+    const int s = lv % kStages;
+    // ablate: empty
+    wait(empty + 8 * s, ((lv / kStages) & 1) ^ 1);
+    uint32_t tx = 0;
+    // ablate: copies
+    tx = kStageBytes;
+    mbar_expect_tx(full + 8 * s, tx);
+    if (tx)
+      tensor_copy(ring + s * kStageBytes, lk < mine ? &wm1 : &wm2, lg * 64,
+                  lcb * 64, 3 * lt, full + 8 * s);
+    ++lv;
+    if (++lt < 3) return;
+    lt = 0;
+    if (++lcb < ng) return;
+    lcb = 0;
+    lg = ++lk == mine ? g0 : lg + dg < ng ? lg + dg : lg + dg - ng;
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads / 32);
     }
-    // done reading the peers' y; conv 2's first block barrier publishes
-    // the gathered rows to every warp
-    cluster_arrive();
+    mbar_init(ybar, 1);
+    fence_mbar_init();
+    prefetch_map(&wm1);
+    prefetch_map(&wm2);
+  }
+  // stamp: 8
+  // K step u: wait for its tap row; for each of its taps dx (A the 8 KB
+  // slice dx, B at descriptor bd shifted dx rows) 4 k16 products a
+  // warpgroup (A two 8-row swizzle atoms, 2048 B, a product; B the next
+  // two planes, kstep descriptor units, on); then, this warpgroup's step
+  // u - 1 done, each warp releases its stage and thread 0 loads use u +
+  // kStages - 1 into it. No block barrier.
+  int u = 0;
+  auto step = [&](float (&acc)[kSets][NW / 2], uint64_t bd,
+                  uint32_t kstep) {
+    const int s = u % kStages;
+    wait(full + 8 * s, (u / kStages) & 1);
+    uint64_t a = sw128_desc(ring + s * kStageBytes);
+    asm volatile("" : "+l"(a), "+l"(bd));
+    wgmma_fence();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        const uint64_t ak = a + 512 * dx + 128 * kc, bk = bd + dx + kstep * kc;
+        // ablate: mma
+        wgmma_t<NW>(acc[(4 * dx + kc) % kSets], ak, bk);
+      }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (lane == 0 && u > 0) mbar_arrive(empty + 8 * ((u - 1) % kStages));
+    load_next();  // use u + kStages - 1
+    ++u;
+  };
+  // every product of this warpgroup done; the sets summed into set 0
+  auto drain = [&](float (&acc)[kSets][NW / 2]) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int k = 0; k < kSets; ++k)
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) fence_operand(acc[k][i]);
+#pragma unroll
+    for (int k = 1; k < kSets; ++k)
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[0][i] += acc[k][i];
+  };
+  auto zero = [&](float (&acc)[kSets][NW / 2], int from) {
+#pragma unroll
+    for (int k = 0; k < kSets; ++k)
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i)
+        if (k >= from) acc[k][i] = 0.f;
+  };
+  // Rows [0, n) of a window of npl chunk planes `plane` bytes apart: row
+  // l holds grid position o0 + l (zeros before the grid, past its last row
+  // and in column w), chunks ch0 .. ch0 + npl - 1 of the pixel (zeros past
+  // C), by cp.async from src (NHWC), as one commit group. Piece p = l npl
+  // + cc; a thread's pieces kThreads apart, its (l, cc) and the grid row
+  // and column of o0 + l stepped without division.
+  auto load_window = [&](uint32_t at, int plane, int n, int npl, int o0,
+                         int ch0, const T* src) {
+    const int dl = kThreads / npl, dc = kThreads - dl * npl;
+    int l = tid / npl, cc = tid - l * npl, o = o0 + l;
+    int r = o >= 0 ? o / pitch : -((pitch - 1 - o) / pitch);
+    int col = o - r * pitch;
+    while (l < n) {
+      const int ch = (ch0 + cc) * 8;
+      const bool ok = r >= 0 && r < h && col != w && ch < c;
+      cp_async16_zfill(at + cc * plane + l * 16,
+                       ok ? src + ((size_t)r * w + col) * c + ch : src, ok);
+      l += dl;
+      col += dl;
+      cc += dc;
+      if (cc >= npl) {
+        cc -= npl;
+        ++l;
+        ++col;
+      }
+      while (col >= pitch) {
+        col -= pitch;
+        ++r;
+      }
+    }
+    cp_async_commit();
+  };
+  // The rows this lane addresses in the epilogue of the tile
+  // (band at o0): pair k's row, position i = wg NW + 8 (2k + lane / 16) +
+  // lane % 8 of the band at row row0 + i of plane plane0 + 2 q + hf of a
+  // buffer (planes `plane` bytes apart); the junk row (plane 0's last)
+  // past the half band or at a dead position (column w, past the last row).
+  auto frag_rows = [&](uint32_t (&at)[kPairs], uint32_t bufa, int plane,
+                       int plane0, int row0, int o0) {
+    const int pl = plane0 + 2 * q + hf;
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int j = 2 * k + (lane >> 4);
+      const int i = wg * NW + 8 * j + (lane & 7), o = o0 + i;
+      const bool live = j < NW / 8 && o < ncell && o % pitch != w;
+      at[k] = live ? bufa + pl * plane + (row0 + i) * 16 : bufa + plane - 16;
+    }
+  };
+  // The tile's y or output from rows row0 + i, planes plane0 + cc of a
+  // buffer to dst (NHWC) in 16 B pieces: live positions, channels below C.
+  auto copy_out = [&](uint32_t bufa, int plane, int plane0, int row0,
+                      int o0, int g, T* dst) {
+    for (int p = tid; p < N * 8; p += kThreads) {
+      const int i = p >> 3, cc = p & 7, o = o0 + i;
+      const int r = o / pitch, col = o - r * pitch, ch = g * 64 + cc * 8;
+      if (o >= ncell || col == w || ch >= c) continue;
+      *reinterpret_cast<uint4*>(dst + ((size_t)r * w + col) * c + ch) =
+          ld_shared16(bufa + (plane0 + cc) * plane + (row0 + i) * 16);
+    }
+  };
+  // this lane's output channels 16 q + lane / 4 (+ 8) of group g: bias
+  auto bias = [&](const float* bv, int g, float (&out2)[2]) {
+    const int ch = g * 64 + 16 * q + (lane >> 2);
+    out2[0] = ch < c ? __ldg(bv + ch) : 0.f;
+    out2[1] = ch + 8 < c ? __ldg(bv + ch + 8) : 0.f;
+  };
+
+  if (push_y) {
+    const int t = rank, g = t % ng, o0 = t / ng * N;  // this rank's tile
+    const int plane = window_rows(N, w) * 16;
+    const uint32_t xw = buf, yw = buf + np * plane;
+    const uint32_t kstep = (2 * plane) >> 4;
+    // y's window zeroed: the rows no tile sends (off the grid, column w)
+    for (int i = tid; i < np * plane / 16; i += kThreads)
+      st_shared_zero16(yw + 16 * i);
+    if (tid < 32) {
+      // the bytes of y the other tiles send this one: lane f's (the push
+      // map below, 8 planes a row)
+      int lo, rows = 0;
+      if (lane < ntiles && lane != t && t < ntiles)
+        rows = push_rows(lane, t, N, w, c, lo);
+      uint32_t tx = 0;
+      // ablate: push
+      tx = __reduce_add_sync(0xFFFFFFFFu, (uint32_t)rows * 8 * 16);
+      if (lane == 0) mbar_expect_tx(ybar, tx);  // the one arrival
+    }
+    // stamp: 9
+    fence_async_shared();  // the zeros before the peers' copies
+    __syncthreads();       // the barriers initialised
+    cluster_arrive();      // ... and y zeroed, before any peer's push
     // stamp: 6
-    general::conv<T, kTileM, true, true>(nullptr, ys, w2, b2, xb, ob, c, h,
-                                         w, c, sp, ring, slabs, b, rank,
-                                         ranks);
-    // stamp: 4
-    cluster_wait();  // no peer reads this CTA's y any more
-  } else {
-    // y of the sample in the workspace: the cluster barrier orders every
-    // rank's y stores before any rank's slab copies (cp.async.cg reads L2)
+    float acc[kSets][NW / 2];
+    uint32_t at[kPairs];
+    if (t < ntiles) {
+      load_window(xw, plane, N + 2 * pitch + 2, np, o0 - pitch - 1, 0, xb);
+      // stamp: 10
+      for (int v = 0; v < kStages - 1; ++v) load_next();
+      // stamp: 7
+      cp_async_wait<0>();
+      fence_async_shared();
+      __syncthreads();
+      // stamp: 0
+      zero(acc, 0);
+      for (int cb = 0; cb < ng; ++cb)
+        for (int dy = 0; dy < 3; ++dy)
+          step(acc,
+               plain_desc(xw + 8 * cb * plane + (wg * NW + dy * pitch) * 16,
+                          plane),
+               kstep);
+      drain(acc);
+      // stamp: 1
+      float add[2], restart[2];
+      bias(b1, g, add);
+      bias(b2, g, restart);
+      frag_rows(at, xw, plane, 8 * g, pitch + 1, o0);
+      epilogue<NW, false, true>(acc[0], add, restart, at, yw - xw);
+      zero(acc, 1);  // conv 2 onto b2 + x in set 0
+#pragma unroll
+      for (int k = 0; k < kSets; ++k)
+#pragma unroll
+        for (int i = 0; i < NW / 2; ++i) fence_operand(acc[k][i]);
+      fence_async_shared();  // y, before the copies and conv 2 read it
+    }
+    __syncthreads();  // this tile's y complete
+    cluster_wait();   // every peer's barrier set up and y window zeroed
+    // stamp: 2
+    if (t < ntiles) {
+      // each plane of y this rank holds, to every tile whose window
+      // reaches its band: one bulk copy of a run of rows a peer and plane
+      for (int i = tid; i < ntiles * 8; i += kThreads) {
+        const int to = i >> 3, pl = i & 7;
+        int lo = 0;
+        const int n = to == t ? 0 : push_rows(t, to, N, w, c, lo);
+        if (n == 0) continue;
+        const uint32_t pa = yw + (8 * g + pl) * plane;
+        const uint32_t src = pa + (lo - o0 + pitch + 1) * 16;
+        const uint32_t dst = pa + (lo - (to / ng * N - pitch - 1)) * 16;
+        // ablate: push
+        push_copy(mapa(dst, to), src, n * 16, mapa(ybar, to));
+      }
+      wait(ybar, 0);  // the peers' rows of y landed
+      // stamp: 5
+    }
+    cluster_arrive();  // every copy into this CTA has landed
+    if (t < ntiles) {
+      for (int cb = 0; cb < ng; ++cb)
+        for (int dy = 0; dy < 3; ++dy)
+          step(acc,
+               plain_desc(yw + 8 * cb * plane + (wg * NW + dy * pitch) * 16,
+                          plane),
+               kstep);
+      drain(acc);
+      // stamp: 3
+      // the output over x's rows of the tile (x's window is free)
+      const float none[2] = {0.f, 0.f};
+      epilogue<NW, true, false>(acc[0], none, none, at, 0);
+      __syncthreads();
+      copy_out(xw, plane, 8 * g, pitch + 1, o0, g, ob);
+      // stamp: 4
+    }
+    cluster_wait();  // no peer's copy reads this CTA's y any more
+    // launch stamp: 31
+    return;
+  }
+
+  if constexpr (2 * NW == kBandMax) {
+    // workspace path: y of the sample in the workspace (NHWC); each K
+    // step's window (one tap row of 8 planes) loaded by every thread
+    // between two block barriers
+    const int plane = rows(N + 2) * 16, splane = rows(N) * 16;
+    const uint32_t win = buf, stg = buf + 8 * plane;
+    const uint32_t kstep = (2 * plane) >> 4;
     T* ys = workspace + b * sample;
-    general::conv<T, kTileM, false, false>(xb, nullptr, w1, b1, xb, ys, c, h,
-                                           w, c, sp, ring, slabs, b, rank,
-                                           ranks);
-    __threadfence();
-    cluster_arrive();
-    cluster_wait();
-    general::conv<T, kTileM, true, false>(ys, nullptr, w2, b2, xb, ob, c, h,
-                                          w, c, sp, ring, slabs, b, rank,
-                                          ranks);
+    __syncthreads();  // the barriers initialised
+    for (int v = 0; v < kStages - 1; ++v) load_next();
+    // stamp: 0
+    for (int conv = 0; conv < 2; ++conv) {
+      for (int k = 0; k < mine; ++k) {
+        const int t = rank + k * ranks, g = t % ng, o0 = t / ng * N;
+        float acc[kSets][NW / 2];
+        zero(acc, 0);
+        for (int cb = 0; cb < ng; ++cb)
+          for (int dy = 0; dy < 3; ++dy) {
+            wgmma_wait<0>();
+            __syncthreads();  // every warpgroup is done with the window
+            // tap row dy: positions o0 + (dy - 1) pitch - 1 on, N + 2 rows
+            load_window(win, plane, N + 2, 8, o0 + (dy - 1) * pitch - 1,
+                        8 * cb, conv ? ys : xb);
+            if (conv && cb == 0 && dy == 0)  // x of the tile: the residual
+              load_window(stg, splane, N, 8, o0, 8 * g, xb);
+            cp_async_wait<0>();
+            fence_async_shared();
+            __syncthreads();
+            step(acc, plain_desc(win + wg * NW * 16, plane), kstep);
+          }
+        drain(acc);
+        float add[2];
+        uint32_t at[kPairs];
+        bias(conv ? b2 : b1, g, add);
+        frag_rows(at, stg, splane, 0, 0, o0);
+        if (conv)
+          epilogue<NW, true, true>(acc[0], add, add, at, 0);
+        else
+          epilogue<NW, false, false>(acc[0], add, add, at, 0);
+        __syncthreads();
+        copy_out(stg, splane, 0, 0, o0, g, conv ? ob : ys);
+        __syncthreads();  // copied out before the staging is written again
+      }
+      if (conv == 0) {
+        // stamp: 1
+        __threadfence();  // y's stores before any rank's window copies
+        cluster_arrive();
+        cluster_wait();
+        // stamp: 2
+      }
+    }
+    // stamp: 4
   }
   // launch stamp: 31
 }
@@ -1945,7 +2420,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // split faster than that variant at every batch below; mirrored by
 // ops/resblock.py's SPLIT_BELOW).
 constexpr int kSplitBelowResident = 17;
-constexpr int kSplitBelowStreaming = 5;
+constexpr int kSplitBelowStreaming = 17;
 constexpr int kSplitBelowGeneral = 2;
 
 // Multiprocessors of the current device, read once a device.
@@ -1965,18 +2440,28 @@ int persistent_grid(int b) {
   return b < sms ? b : sms;
 }
 
-// CTAs of the split variant's cluster: enough for one sample's tiles (a
-// power of two from 2 to kClusterMax), halved while a batch's clusters
-// would hold more than half the SMs (down to 2). A cluster's CTAs share
-// one GPC, at one a SM where shared memory passes half an SM's, so at
-// most half the SMs' worth of clusters of 16 run at once (H100: under 8
-// clusters of 16; alphafive_resblock_active_clusters).
+// CTAs of the split variant's cluster: enough for one sample's tiles of
+// split::BM positions (a power of two from 2 to kClusterMax), halved
+// while a batch's clusters would hold more than half the SMs (down to 2).
+// A cluster's CTAs share one GPC, at one a SM where shared memory passes
+// half an SM's, so at most half the SMs' worth of clusters of 16 run at
+// once (H100: under 8 clusters of 16; alphafive_resblock_active_clusters).
+// The band then follows (split::band: the shortest whose tiles the ranks
+// hold one each).
 int cluster_size(int b, int h, int w, int c) {
   const int t = split::tiles(h, w, c);
   int k = 2;
   while (k < split::kClusterMax && k < t) k *= 2;
   while (k > 2 && (long long)b * k > sm_count() / 2) k /= 2;
   return k;
+}
+
+// Whether split keeps y in shared memory (the push path) at this batch:
+// at its cluster and at the 8 a cluster of 16 narrows to (launch_split),
+// so that the workspace is there whenever the workspace path runs.
+bool split_in_smem(int b, int h, int w, int c) {
+  const int k = cluster_size(b, h, w, c);
+  return split::push(k, h, w, c) && split::push(k < 8 ? k : 8, h, w, c);
 }
 
 // Whether `variant` takes this shape (alphafive_resblock_as launches a
@@ -2029,7 +2514,7 @@ long long workspace_bytes(int variant, int dtype, int b, int h, int w,
   if (b < 1) return 0;
   if (variant == kStreaming) return (long long)streaming::kTaps * c * c * 2;
   if (variant == kSplit)
-    return split::y_in_smem(h, w, c) ? 0 : (long long)b * h * w * c * 2;
+    return split_in_smem(b, h, w, c) ? 0 : (long long)b * h * w * c * 2;
   if (variant != kGeneral) return 0;
   const int elem = dtype == 1 ? 2 : 4;
   if (general::y_in_smem(h, w, c, elem)) return 0;
@@ -2115,14 +2600,15 @@ cudaError_t launch_general(const void* x, const void* w1, const void* b1,
 std::atomic<long long> narrowed{0};
 
 // Clusters of k CTAs of `kernel` at `smem` bytes the device can hold at
-// once, asked once per (k, smem, device).
+// once, asked once per (kernel, k, smem, device).
 template <typename K>
 int active_clusters(K kernel, int k, int smem) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int>, int> known;
+  static std::map<std::tuple<const void*, int, int, int>, int> known;
   int dev = 0;
   cudaGetDevice(&dev);
-  const auto key = std::make_tuple(k, smem, dev);
+  const auto key =
+      std::make_tuple(reinterpret_cast<const void*>(kernel), k, smem, dev);
   std::lock_guard<std::mutex> lock(mu);
   const auto it = known.find(key);
   if (it != known.end()) return it->second;
@@ -2146,21 +2632,87 @@ int active_clusters(K kernel, int k, int smem) {
   return n;
 }
 
+using SplitKernel = void (*)(const __nv_bfloat16*, const CUtensorMap,
+                             const float*, const CUtensorMap, const float*,
+                             __nv_bfloat16*, __nv_bfloat16*, int, int, int);
+
+// One conv's weights, bf16 [9][C][C], as the split kernel's 3-D tensor
+// map: Cout fastest, then Cin, then the tap; a box of 64 Cout x 64 Cin of
+// 3 taps (a tap row), 128-byte swizzled, zeros past C. Encoded once per
+// (weights, C) (the driver's cuTensorMapEncodeTiled, reached through the
+// runtime: no link against the driver library). cudaErrorNotSupported
+// where the driver has no encoder or refuses the weights: a failure of
+// the card's set-up, not a shape the variant refuses.
+cudaError_t weight_map(CUtensorMap* map, const void* w, int c) {
+  static const auto encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }();
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, CUtensorMap> known;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_pair(w, c);
+  const auto it = known.find(key);
+  if (it != known.end()) {
+    *map = it->second;
+    return cudaSuccess;
+  }
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)c, (cuuint64_t)c, 9};
+  const cuuint64_t strides[2] = {(cuuint64_t)c * 2, (cuuint64_t)c * c * 2};
+  const cuuint32_t box[3] = {64, 64, 3}, unit[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(w),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorNotSupported;
+  known[key] = *map;
+  return cudaSuccess;
+}
+
+// The split kernel of a cluster of k at this shape: its band's on the
+// push path, the longest band's on the workspace path.
+SplitKernel split_kernel(int k, int h, int w, int c) {
+  const int n =
+      split::push(k, h, w, c) ? split::band(k, h, w, c) : split::kBandMax;
+  switch (n) {
+    case 48:
+      return split::kernel<24>;
+    case 64:
+      return split::kernel<32>;
+    case 96:
+      return split::kernel<48>;
+  }
+  return split::kernel<split::kBandMax / 2>;
+}
+
 // One cluster of cluster_size(b, h, w, c) CTAs a sample.
 cudaError_t launch_split(const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* out,
                          void* workspace, int b, int h, int w, int c,
                          cudaStream_t s) {
   using T = __nv_bfloat16;
-  const auto kernel = split::kernel<split::BM>;
+  int k = cluster_size(b, h, w, c);
+  SplitKernel kernel = split_kernel(k, h, w, c);
   cudaError_t err = prepare(kernel, true);
   if (err != cudaSuccess) return err;
-  const int smem = split::smem_bytes(h, w, c);
-  int k = cluster_size(b, h, w, c);
-  if (k > 8 && active_clusters(kernel, k, smem) < 1) {
+  if (k > 8 &&
+      active_clusters(kernel, k, split::smem_bytes(k, h, w, c)) < 1) {
     k = 8;
     ++narrowed;
+    kernel = split_kernel(k, h, w, c);
+    err = prepare(kernel, true);
+    if (err != cudaSuccess) return err;
   }
+  CUtensorMap wm1, wm2;
+  err = weight_map(&wm1, w1, c);
+  if (err == cudaSuccess) err = weight_map(&wm2, w2, c);
+  if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -2169,15 +2721,14 @@ cudaError_t launch_split(const void* x, const void* w1, const void* b1,
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(b * k);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
+  cfg.dynamicSmemBytes = split::smem_bytes(k, h, w, c);
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const float*>(b1), static_cast<const T*>(w2),
-      static_cast<const float*>(b2), static_cast<T*>(out),
-      static_cast<T*>(workspace), h, w, c);
+      &cfg, kernel, static_cast<const T*>(x), wm1,
+      static_cast<const float*>(b1), wm2, static_cast<const float*>(b2),
+      static_cast<T*>(out), static_cast<T*>(workspace), h, w, c);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -2304,9 +2855,9 @@ extern "C" long long alphafive_resblock_narrowed() { return narrowed; }
 // where it refuses the size).
 extern "C" int alphafive_resblock_active_clusters(int k, int h, int w,
                                                   int c) {
-  const auto kernel = split::kernel<split::BM>;
+  const SplitKernel kernel = split_kernel(k, h, w, c);
   if (prepare(kernel, true) != cudaSuccess) return 0;
-  return active_clusters(kernel, k, split::smem_bytes(h, w, c));
+  return active_clusters(kernel, k, split::smem_bytes(k, h, w, c));
 }
 
 // The streaming kernel's tap pack alone (alphafive_resblock runs it before

@@ -44,16 +44,13 @@ def _general_ring(bf16: bool) -> int:
 _GENERAL_RING = {bf16: _general_ring(bf16) for bf16 in (True, False)}
 
 
-def _general_stage(h: int, w: int, c: int, bf16: bool,
-                   bm: int | None = None) -> int:
+def _general_stage(h: int, w: int, c: int, bf16: bool) -> int:
     """The general variant's shared memory beside y: the ring and the
     slabs, each of the rows of all three tap rows of an M tile (BM + 2w +
     2, at most h·w) and 3 zero rows (one slab where C <= BK and a 64-channel
     residual row fits in a slab row, else two), or, where that does not
-    fit, two of one tap row (BM + 2). `bm`: tiles of other than BM pixels
-    (the split variant's SPLIT_BM)."""
-    elem, pad, tile_m, bk, _ = _general_dims(bf16)
-    bm = bm or tile_m
+    fit, two of one tap row (BM + 2)."""
+    elem, pad, bm, bk, _ = _general_dims(bf16)
     for reach, slabs in ((2 * w + 2, 1 if c <= bk and 64 <= bk else 2),
                          (2, 2)):
         rows = min(bm + reach, h * w) + 3
@@ -63,34 +60,104 @@ def _general_stage(h: int, w: int, c: int, bf16: bool,
     raise AssertionError("one tap row's slabs always fit")
 
 # csrc/resblock.cu's split variant (bf16): one sample over the CTAs of a
-# thread-block cluster, general's implicit GEMM in tiles of SPLIT_BM pixels
-# x 64 channels dealt to its ranks; clusters of 2 to SPLIT_CLUSTER_MAX
-# CTAs (`cluster_size`). It runs the batches below SPLIT_BELOW[v] of each
+# thread-block cluster, each rank a tile of one band of the h x (w + 1)
+# grid's positions (SPLIT_BANDS) x 64 output channels on wgmma; clusters
+# of 2 to SPLIT_CLUSTER_MAX CTAs (`cluster_size`, counting tiles of
+# SPLIT_BM positions). It runs the batches below SPLIT_BELOW[v] of each
 # shape the variant v takes otherwise (kSplitBelowResident, ... in the
 # source): where chip_smoke.py measured it faster than v.
 SPLIT_BM, SPLIT_CLUSTER_MAX = 64, 16
+SPLIT_BANDS = (48, 64, 96, 192)   # band_at(0 .. kBands - 1); the last kBandMax
+SPLIT_STAGES, SPLIT_STAGE_BYTES, SPLIT_BAR_BYTES = 3, 3 * 64 * 64 * 2, 128
 SPLIT_BELOW_RESIDENT = 17
-SPLIT_BELOW_STREAMING = 5
+SPLIT_BELOW_STREAMING = 17
 SPLIT_BELOW_GENERAL = 2
 SPLIT_BELOW = {"resident": SPLIT_BELOW_RESIDENT,
                "streaming": SPLIT_BELOW_STREAMING,
                "general": SPLIT_BELOW_GENERAL}
 
 
-def split_tiles(h: int, w: int, c: int) -> int:
-    """Output tiles of one sample in the split variant: bands of SPLIT_BM
-    pixels x 64-channel groups."""
-    return -(-h * w // SPLIT_BM) * -(-c // 64)
+def split_tiles(h: int, w: int, c: int, n: int = SPLIT_BM) -> int:
+    """Output tiles of one sample in the split variant: bands of `n`
+    positions of the h x (w + 1) grid x 64-channel groups."""
+    return -(-h * (w + 1) // n) * -(-c // 64)
+
+
+def split_planes(c: int) -> int:
+    """16 B chunk planes of a split buffer: 8 a 64-channel group (zeros
+    past C, so that every K step is 4 k16 products)."""
+    return -(-c // 64) * 8
+
+
+def _split_rows(used: int) -> int:
+    """A split buffer's rows: `used`, one junk row, rounded to 1 mod 8."""
+    return (used + 7) // 8 * 8 + 1
+
+
+def split_window_rows(n: int, w: int) -> int:
+    """Rows of a split window: every row a band of `n`'s 9 taps read
+    (n + 2(w + 1) + 2), the junk row, rounded."""
+    return _split_rows(n + 2 * (w + 1) + 2)
+
+
+def split_band(k: int, h: int, w: int, c: int) -> int:
+    """The band of a cluster of k: the shortest in SPLIT_BANDS whose tiles
+    the ranks hold one each, else the longest."""
+    return next((n for n in SPLIT_BANDS if split_tiles(h, w, c, n) <= k),
+                SPLIT_BANDS[-1])
+
+
+def _split_push_smem(n: int, w: int, c: int) -> int:
+    return (SPLIT_BAR_BYTES + SPLIT_STAGES * SPLIT_STAGE_BYTES
+            + 2 * split_planes(c) * split_window_rows(n, w) * 16)
+
+
+_SPLIT_WS_SMEM = (SPLIT_BAR_BYTES + SPLIT_STAGES * SPLIT_STAGE_BYTES + 8 * (
+    _split_rows(SPLIT_BANDS[-1] + 2) + _split_rows(SPLIT_BANDS[-1])) * 16)
+
+
+def split_push(k: int, h: int, w: int, c: int) -> bool:
+    """Whether a cluster of k keeps y in shared memory and pushes it to
+    the peers: a tile a rank, and x's and y's windows fit; else y goes
+    through the workspace in tiles of the longest band."""
+    n = split_band(k, h, w, c)
+    return (split_tiles(h, w, c, n) <= k
+            and _split_push_smem(n, w, c) <= _SMEM_LIMIT)
+
+
+def _split_smem(k: int, h: int, w: int, c: int) -> int:
+    if split_push(k, h, w, c):
+        return _split_push_smem(split_band(k, h, w, c), w, c)
+    return _SPLIT_WS_SMEM
+
+
+def split_push_rows(t: int, u: int, n: int, w: int, c: int) -> tuple:
+    """The push map: the positions of tile t's band (its rank's y, in the
+    8 planes of its group) that tile u's window reaches, (first, count);
+    count 0 where none. Tile t holds band t // G (G = 64-channel groups),
+    group t % G; u's window covers positions [u // G n - w - 2, u // G n +
+    n + w + 2)."""
+    ng = -(-c // 64)
+    a, wa = t // ng * n, u // ng * n - w - 2
+    lo, hi = max(a, wa), min(a + n, wa + n + 2 * (w + 2))
+    return lo, max(hi - lo, 0)
+
+
+def split_push_bytes(u: int, ntiles: int, n: int, w: int, c: int) -> int:
+    """Bytes of y that tile u's window receives from the other tiles: the
+    8 planes of each one's group at the rows the map gives."""
+    return sum(split_push_rows(t, u, n, w, c)[1] * 8 * 16
+               for t in range(ntiles) if t != u)
 
 
 def cluster_size(b: int, h: int, w: int, c: int) -> int:
     """CTAs of the split variant's cluster (csrc/resblock.cu's
     cluster_size on a card of _SMS SMs): the power of two from 2 to
-    SPLIT_CLUSTER_MAX that covers one sample's tiles, halved while b
-    clusters would hold more than half the SMs (down to 2: a cluster's
-    CTAs share one GPC, so fewer than 8 clusters of 16 run at once). The
-    library runs 8 where a cluster of 16 cannot be co-scheduled, and
-    counts it (`cluster_narrowed`)."""
+    SPLIT_CLUSTER_MAX that covers one sample's tiles of SPLIT_BM
+    positions, halved while b clusters would hold more than half the SMs
+    (down to 2: a cluster's CTAs share one GPC, so fewer than 8 clusters
+    of 16 run at once). The library runs 8 where a cluster of 16 cannot
+    be co-scheduled, and counts it (`cluster_narrowed`)."""
     k, t = 2, split_tiles(h, w, c)
     while k < SPLIT_CLUSTER_MAX and k < t:
         k *= 2
@@ -99,8 +166,12 @@ def cluster_size(b: int, h: int, w: int, c: int) -> int:
     return k
 
 
-def _split_fits(h: int, w: int, c: int) -> bool:
-    return c % 8 == 0 and _smem_bytes("split", h, w, c, True) <= _SMEM_LIMIT
+def split_in_smem(b: int, h: int, w: int, c: int) -> bool:
+    """Whether split keeps y on chip at this batch, at its cluster and at
+    the 8 a cluster of 16 narrows to (so the workspace is there whenever
+    the workspace path runs)."""
+    k = cluster_size(b, h, w, c)
+    return split_push(k, h, w, c) and split_push(min(k, 8), h, w, c)
 
 
 # csrc/resblock.cu's variant codes (alphafive_resblock_variant)
@@ -203,16 +274,19 @@ def pack_streaming_taps(w1, w2) -> torch.Tensor:
 # one 16 KB tap beside two halo-padded buffers of 272 B rows; "general"
 # its ring and slabs, and y of one sample where that fits (else y goes to
 # a device workspace, `_y_in_smem`): rows of C rounded up to 128 B plus
-# 16 B, and 3 zero rows.
+# 16 B, and 3 zero rows; "split" (at batch b's cluster) 7 mbarriers in
+# 128 B and a ring of 3 tap rows of 64 x 64 weight slices beside x's and y's
+# windows of every plane over the band's tap rows (`_split_push_smem`),
+# or, where y goes through the workspace, one tap row's window of 8
+# planes and the tile's staging rows (`_SPLIT_WS_SMEM`).
 def _y_bytes(h: int, w: int, c: int, bf16: bool) -> int:
     pad = 8 if bf16 else 4                    # elements in 16 B
     stride = -(-c // (8 * pad)) * 8 * pad + pad
     return (h * w + 3) * stride * (2 if bf16 else 4)
 
 
-def _y_in_smem(h: int, w: int, c: int, bf16: bool,
-               bm: int | None = None) -> bool:
-    need = _general_stage(h, w, c, bf16, bm) + _y_bytes(h, w, c, bf16)
+def _y_in_smem(h: int, w: int, c: int, bf16: bool) -> bool:
+    need = _general_stage(h, w, c, bf16) + _y_bytes(h, w, c, bf16)
     return need <= _SMEM_LIMIT
 
 
@@ -228,13 +302,14 @@ def _workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool,
     if b >= 1 and kind == "streaming":
         return _TAPS * c * c * 2
     if b >= 1 and kind == "split":
-        return 0 if _y_in_smem(h, w, c, True, SPLIT_BM) else b * h * w * c * 2
+        return 0 if split_in_smem(b, h, w, c) else b * h * w * c * 2
     if b < 1 or kind != "general" or _y_in_smem(h, w, c, bf16):
         return 0
     return min(b, _SMS) * h * w * c * (2 if bf16 else 4)
 
 
-def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
+def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool,
+                b: int = 1) -> int:
     def rows(positions):
         return (positions + 2 * (w + 1) + 9) // 8 * 8 + 1
     if variant == "resident":
@@ -244,10 +319,11 @@ def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool) -> int:
         return (2 * c * c + 2 * (h + 2) * (w + 2) * (c + 4)) * 4
     if variant == "streaming":
         return 3 * c * c * 2 + (c // 8) * rows(384) * 16 + 2 * 3 * 8
-    if variant in ("general", "split"):
-        bm = SPLIT_BM if variant == "split" else None
-        return _general_stage(h, w, c, bf16, bm) + (
-            _y_bytes(h, w, c, bf16) if _y_in_smem(h, w, c, bf16, bm) else 0)
+    if variant == "general":
+        return _general_stage(h, w, c, bf16) + (
+            _y_bytes(h, w, c, bf16) if _y_in_smem(h, w, c, bf16) else 0)
+    if variant == "split":   # at the batch's cluster
+        return _split_smem(cluster_size(b, h, w, c), h, w, c)
     raise ValueError(f"no variant {variant!r}")
 
 
@@ -279,7 +355,7 @@ def variant(dtype: torch.dtype, h: int, w: int, c: int,
     base = next((v for v, shape_ok in kinds if shape_ok and
                  _smem_bytes(v, h, w, c, bf16) <= _SMEM_LIMIT), "general")
     if (bf16 and b is not None and 1 <= b < SPLIT_BELOW[base]
-            and split_tiles(h, w, c) >= 2 and _split_fits(h, w, c)):
+            and split_tiles(h, w, c) >= 2 and c % 8 == 0):
         return "split"
     return base
 
@@ -392,7 +468,7 @@ def fused_resblock_as(kind: str, x, w1, b1, w2, b2) -> torch.Tensor:
             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), None if ws is None
             else ws.data_ptr(), b, h, w, c,
             torch.cuda.current_stream().cuda_stream)
-    if err == 1:   # cudaErrorInvalidValue: the variant does not take it
+    if err == 1:   # cudaErrorInvalidValue: only a shape the variant refuses
         raise ValueError(f"{kind} does not take {b}x{h}x{w}x{c} {x.dtype}")
     if err != 0:
         raise RuntimeError(f"resblock {kind} launch failed: CUDA error {err}")

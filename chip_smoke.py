@@ -66,7 +66,8 @@ the entry points a user calls:
   moves from ``pretrained/15x15`` (``chip_15x15``) and
   ``pretrained/19x19_10b`` (``renju_19x19``) with the bundle's net fused
   (``small_batch_play``): the small batches (1 and 8) that the resblock
-  kernel's split variant serves, each held by a kernel_vs_plain row.
+  kernel's split variant serves (at ``19x19_10b`` every launch), each
+  held by a kernel_vs_plain row.
 
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
@@ -89,9 +90,10 @@ descent's steps times one L2 round trip, both measured here by
 variant's tap pack is held bit-equal to its plain twin at 64, 96 and 128
 channels (``pack_taps_vs_plain``). The small-batch rows also give the
 split variant (one sample over a thread-block cluster) launched by name
-against the plain twin, its ``split_ms`` and the ``replaced_ms`` of the
-variant the shape takes otherwise; a row that dispatches split fails
-unless split is the faster in that run.
+against the plain twin, its ``split_ms`` (beside ``split_before_ms``,
+its time before the redesign, and its band and path) and the
+``replaced_ms`` of the variant the shape takes otherwise; a row that
+dispatches split fails unless split is the faster in that run.
 """
 
 from __future__ import annotations
@@ -154,12 +156,12 @@ SHAPES += [(b, 15, 64, torch.bfloat16, "resident")
 SHAPES += [(4096, 19, 128, torch.bfloat16, "streaming"),
            (512, 19, 128, torch.bfloat16, "streaming")]
 # the 19x19_10b bundle's cli play and cli eval forwards: the root (1) and
-# the leaf batches or Gumbel lanes (2 to 16)
+# the leaf batches or Gumbel lanes (2 to 16; cli play's leaves are 8)
 SHAPES += [(1, 19, 128, torch.bfloat16, "split"),
            (2, 19, 128, torch.bfloat16, "split"),
            (4, 19, 128, torch.bfloat16, "split"),
-           (8, 19, 128, torch.bfloat16, "streaming"),
-           (16, 19, 128, torch.bfloat16, "streaming")]
+           (8, 19, 128, torch.bfloat16, "split"),
+           (16, 19, 128, torch.bfloat16, "split")]
 # the streaming rows' device ms before the variant's redesign (the first
 # form: a cp.async ring, a block barrier a tap, x reloaded for the
 # residual), by this script on an H100 80GB HBM3 at 700 W: each row gives
@@ -167,6 +169,18 @@ SHAPES += [(1, 19, 128, torch.bfloat16, "split"),
 STREAMING_BEFORE_MS = {(2048, 19, 96): 0.7926, (2048, 19, 128): 1.1396,
                        (256, 19, 64): 0.05447, (4096, 19, 128): 2.2171,
                        (512, 19, 128): 0.3113}
+# the split variant's device ms before its redesign (general's implicit
+# GEMM by mma.sync over a cp.async ring in 64-pixel tiles, y gathered from
+# the peers), by this script on an H100 80GB HBM3 at 700 W (the whole
+# script's run "final2" of the split variant's first form): each row that
+# times split gives it as split_before_ms beside its split_ms
+SPLIT_BEFORE_MS = {(1, 15, 64): 0.01515, (2, 15, 64): 0.01527,
+                   (4, 15, 64): 0.01533, (8, 15, 64): 0.01553,
+                   (16, 15, 64): 0.01607, (1, 19, 128): 0.02629,
+                   (2, 19, 128): 0.02605, (4, 19, 128): 0.02613,
+                   (8, 19, 128): 0.04749, (16, 19, 128): 0.07011,
+                   (1, 15, 256): 0.04512, (1, 240, 72): 2.5555,
+                   (1, 33, 64): 0.02798, (64, 6, 8): 0.01164}
 # the streaming variant's tap pack against its plain twin, bit for bit, at
 # every width the variant takes
 PACK_CHANNELS = (64, 96, 128)
@@ -204,7 +218,8 @@ SHAPES += [(1, 33, 64, torch.bfloat16, "split")]
 # these rows of other variants, where it is timed beside them
 SPLIT_ALSO = {(64, 6, 8)} | {(b, 19, 128) for b in EVAL_BATCHES}
 GENERAL_ROW = (2048, 15, 256)
-SPLIT_ROW = (1, 19, 128)   # the split row the kernels line shows
+SPLIT_ROW = (8, 19, 128)   # the split row the kernels line shows: cli
+# play's Renju leaves
 # bf16: one ulp of a rounded y (2^-8 relative) moves the output by about one
 # ulp of the output again, so allow two ulps of outputs of magnitude ~4-8
 # (2^-5 = 0.03125) plus 2% relative; f32 differs only in summation order
@@ -472,6 +487,9 @@ def split_vs_replaced(row: dict, kind: str, x, w1, b1, w2, b2) -> None:
         raise AssertionError(f"split disagrees with the plain twin: {row}")
     row["split_ms"], row["split_ms_spread"] = timing.graph_ms(
         lambda: rb.fused_resblock_as("split", x, w1, b1, w2, b2))
+    row["split_before_ms"] = SPLIT_BEFORE_MS.get((b, h, c))
+    row["split_band"] = rb.split_band(row["cluster_size"], h, w, c)
+    row["split_push"] = rb.split_push(row["cluster_size"], h, w, c)
     row["replaced"] = base
     row["replaced_ms"], row["replaced_ms_spread"] = timing.graph_ms(
         lambda: rb.fused_resblock_as(base, x, w1, b1, w2, b2))
@@ -2266,8 +2284,10 @@ def phase_small_batch_play(card: str) -> dict:
         stones = int((st.board[0] != 0).sum())
         if stones != PLAY_MOVES:
             fails.append(("stones", stones))
-        if bundle == "19x19_10b" and not total["split"] > 0:
-            fails.append(("no split launch", total))
+        # the Renju root and leaves (batches 1 and 8): all split
+        if bundle == "19x19_10b" and not 0 < total["split"] == sum(
+                total.values()):
+            fails.append(("not every launch split", total))
         emit("small_batch_play", bundle=f"pretrained/{bundle}",
              preset=cfg.name, sims=PLAY_SIMS, envs=1,
              leaf_batch=cfg.mcts.leaf_batch, blocks=net_cfg.blocks,
@@ -2580,7 +2600,7 @@ def main() -> int:
             "share_of_bound", "library_ms")},
         "split_shape": {k: split_row[k] for k in (
             "batch", "board", "channels", "variant", "cluster_size",
-            "max_abs_err", "ms", "replaced", "replaced_ms",
+            "split_band", "max_abs_err", "ms", "replaced", "replaced_ms",
             "host_us_per_call", "plain_ms", "bound_ms",
             "bound_by", "share_of_bound", "library_ms")},
         "general_shape": {k: general_row[k] for k in (

@@ -127,8 +127,8 @@ def test_kernel_wrapper_rejects_unsupported():
     (torch.bfloat16, 15, 64, 16, "split"),
     (torch.bfloat16, 19, 128, 1, "split"),
     (torch.bfloat16, 19, 128, 4, "split"),
-    (torch.bfloat16, 19, 128, 8, "streaming"),  # split measured slower
-    (torch.bfloat16, 19, 128, 16, "streaming"),
+    (torch.bfloat16, 19, 128, 8, "split"),      # cli play's Renju leaves
+    (torch.bfloat16, 19, 128, 16, "split"),
     (torch.bfloat16, 15, 256, 1, "split"),
     (torch.bfloat16, 15, 256, 2, "general"),
     (torch.float32, 15, 64, 1, "tiled"),        # f32 never splits
