@@ -1,0 +1,80 @@
+"""Nothing of the benchmark imports JAX, flax or the JAX package, and
+the reference imports nothing of the program. Top-level module names are
+compared whole: ``alphafive_tpu_torch`` begins with ``alphafive_tpu``
+but is not it."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+from conftest import ROOT
+
+BENCH_DIR = os.path.join(ROOT, "perfbench")
+FORBIDDEN = {"jax", "jaxlib", "flax", "alphafive_tpu"}
+SOURCES = sorted(os.path.join(d, f) for d, _, fs in os.walk(BENCH_DIR)
+                 for f in fs if f.endswith(".py"))
+
+
+def top_level_imports(path: str) -> set:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module.split(".")[0])
+    return names
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[os.path.relpath(p, BENCH_DIR) for p in SOURCES])
+def test_no_jax_imports(path):
+    assert not top_level_imports(path) & FORBIDDEN
+
+
+@pytest.mark.parametrize("path", [p for p in SOURCES
+                                  if os.sep + "reference" + os.sep in p])
+def test_reference_imports_nothing_of_the_program(path):
+    assert "alphafive_tpu_torch" not in top_level_imports(path)
+    assert not top_level_imports(path) & FORBIDDEN
+
+
+def test_whole_names_are_compared():
+    sys.path.insert(0, BENCH_DIR)
+    try:
+        import run
+    finally:
+        sys.path.remove(BENCH_DIR)
+    saved = dict(sys.modules)
+    try:
+        sys.modules["alphafive_tpu_torch_x"] = sys
+        assert run.loaded_forbidden() == sorted(
+            {m.split(".")[0] for m in saved} & FORBIDDEN)
+        sys.modules["alphafive_tpu.fake"] = sys
+        assert "alphafive_tpu" in run.loaded_forbidden()
+    finally:
+        for k in ("alphafive_tpu_torch_x", "alphafive_tpu.fake"):
+            sys.modules.pop(k, None)
+
+
+def test_a_run_loads_no_jax():
+    """A small run in a fresh interpreter leaves no JAX module loaded."""
+    code = (
+        "import sys, time; sys.path.insert(0, 'perfbench/tests');"
+        "sys.path.insert(0, '.');"
+        "import conftest;"
+        "conftest.run_tiny('play', seconds=0.5);"
+        "bad = sorted({m.split('.')[0] for m in sys.modules}"
+        " & {'jax', 'jaxlib', 'flax', 'alphafive_tpu'});"
+        "print('LOADED', bad)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "USE_FLAX": "0"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout
