@@ -31,7 +31,8 @@ Prints one JSON line each for:
 * ``search_breakdown``: the host time of one simulation step of a 16-env
   packed search, split into the ``select_batch`` call, ``_gather_env`` +
   ``vector.step``, ``evaluate`` and the two backup ``index_put_`` calls
-  (host clock, no synchronisation inside the search), and from a
+  (spans of ``utils/trace.py``, no synchronisation inside the search),
+  and from a
   ``torch.profiler`` run of the same search the kernels' device time per
   step (in all, the select kernel's, the eight largest by name) and the
   device's busy share of the unprofiled search's wall time.
@@ -55,6 +56,7 @@ import torch
 from alphafive_tpu_torch.benchmarks import timing
 from alphafive_tpu_torch.ops import _build
 from alphafive_tpu_torch.ops import select as sel
+from alphafive_tpu_torch.utils import trace
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "select.cu")
@@ -299,28 +301,27 @@ def search_tree(bundle: str, envs: int, seed: int):
 
 def search_breakdown(bundle: str = "15x15", envs: int = 16,
                      seed: int = 7) -> dict:
-    """Host µs per simulation step of one packed search by part (host
-    clock around each call, nothing synchronised inside the search), and
+    """Host µs per simulation step of one packed search by part (a span
+    around each call, nothing synchronised inside the search), and
     the kernels' device µs per step from a torch.profiler run of the same
     search."""
     from alphafive_tpu_torch.env import vector
     from alphafive_tpu_torch.mcts import search_packed as sp
     _, env_cfg, evaluate, st, mcts = search_tree(bundle, envs, seed)
-    host = {}
 
     def timed(name, fn):
         def wrapped(*args, **kw):
-            with torch.profiler.record_function(name):
-                t0 = time.perf_counter()
-                out = fn(*args, **kw)
-                host[name] = host.get(name, 0.0) + time.perf_counter() - t0
-            return out
+            with trace.span(name):
+                return fn(*args, **kw)
         return wrapped
 
     parts = ("select_batch", "gather_env+vector.step", "evaluate",
              "backup index_put_")
 
     def run():
+        """The search with the parts spanned: (wall s, host s by part)."""
+        trace.reset()
+        trace.enable()
         with contextlib.ExitStack() as stack:
             for target, attr, name in (
                     (sp, "_gather_env", parts[1]), (vector, "step", parts[1]),
@@ -333,26 +334,27 @@ def search_breakdown(bundle: str = "15x15", envs: int = 16,
                                add_noise=False,
                                select=timed(parts[0], sel.select_batch))
             torch.cuda.synchronize()
-            return time.perf_counter() - t0
+            wall = time.perf_counter() - t0
+        trace.disable()
+        spans = trace.snapshot()["spans"]
+        return wall, {k: spans[k]["total_s"] for k in parts}
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sp.run_mcts_packed(env_cfg, mcts, evaluate, st, add_noise=False)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    host.clear()
-    wall = run()
+    wall, host = run()
     host_us = {k: host[k] / SIMS * 1e6 for k in parts}
-    host.clear()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        prof_wall = run()
+        prof_wall, _ = run()
     # device time of the kernels themselves (an op's device time would
     # count its kernels again)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in parts]   # not the spans' device mirrors
+               and not e.name.startswith("af.")]   # not the spans' mirrors
     device_total = sum(e.time_range.elapsed_us() for e in kernels)
     by_kernel = {}
     for e in kernels:

@@ -29,6 +29,10 @@ lanes expand one node and each backs up its own value. Top-k here is a
 stable descending sort, so ties keep the lower index first, as
 ``lax.top_k`` does. Randomness: g is drawn from `generator`, or injected
 as a table (``gumbel=``), as the JAX package's tests inject theirs.
+
+Spans (``utils/trace.py``): ``search`` / ``root_forward``, then the
+passes' spans (``descent`` and the rest, from ``search`` or
+``search_capped``).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from alphafive_tpu_torch.env.vector import EnvState
 from alphafive_tpu_torch.mcts import search, search_capped
 from alphafive_tpu_torch.mcts.search import (Evaluator, _tree_init,
                                              _write_nodes, masked_softmax)
+from alphafive_tpu_torch.utils import trace
 
 
 class GumbelResult(NamedTuple):
@@ -129,8 +134,9 @@ def _root(evaluate: Evaluator, state: EnvState, generator, add_noise: bool,
           gumbel: Optional[torch.Tensor]):
     """Root forward and Gumbel scores: (logits, value, legal, priors,
     g + logits with illegal = -inf)."""
-    root_logits, root_v = evaluate(state.board, state.to_play,
-                                   state.last_move)
+    with trace.span("root_forward"):
+        root_logits, root_v = evaluate(state.board, state.to_play,
+                                       state.last_move)
     root_logits = root_logits.float()
     root_legal = state.board == 0
     root_p = masked_softmax(root_logits, root_legal)
@@ -166,62 +172,67 @@ def run_gumbel_mcts(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
     g = 0 (deterministic: match play). `gumbel` [E, A] injects g."""
     sims, nn, depth_limit, fixed_w, w_scale, prior_dtype = _budget(
         mcts_cfg, num_simulations)
-    if mcts_cfg.branch_cap is not None:
-        return _run_gumbel_capped(env_cfg, mcts_cfg, evaluate, state,
-                                  generator, sims=sims, add_noise=add_noise,
-                                  gumbel=gumbel)
-    e, a = state.board.shape
-    schedule = build_schedule(sims, min(int(mcts_cfg.gumbel_m), a))
-    m = schedule[0][0]
-    c_puct = float(mcts_cfg.c_puct)
-    c_visit = float(mcts_cfg.gumbel_c_visit)
-    c_scale = float(mcts_cfg.gumbel_c_scale)
+    with trace.span("search"):
+        if mcts_cfg.branch_cap is not None:
+            return _run_gumbel_capped(env_cfg, mcts_cfg, evaluate, state,
+                                      generator, sims=sims,
+                                      add_noise=add_noise, gumbel=gumbel)
+        e, a = state.board.shape
+        schedule = build_schedule(sims, min(int(mcts_cfg.gumbel_m), a))
+        m = schedule[0][0]
+        c_puct = float(mcts_cfg.c_puct)
+        c_visit = float(mcts_cfg.gumbel_c_visit)
+        c_scale = float(mcts_cfg.gumbel_c_scale)
 
-    tree = _tree_init(env_cfg, e, nn, prior_dtype, fixed_w,
-                      state.board.device)
-    _write_nodes(tree, 0, state)
-    root_logits, root_v, root_legal, root_p, glogits = _root(
-        evaluate, state, generator, add_noise, gumbel)
-    tree.p[:, 0] = torch.where(root_legal, root_p, -1.0).to(prior_dtype)
+        tree = _tree_init(env_cfg, e, nn, prior_dtype, fixed_w,
+                          state.board.device)
+        _write_nodes(tree, 0, state)
+        root_logits, root_v, root_legal, root_p, glogits = _root(
+            evaluate, state, generator, add_noise, gumbel)
+        tree.p[:, 0] = torch.where(root_legal, root_p, -1.0).to(prior_dtype)
 
-    # top-m candidates by g + logits; envs with fewer than m legal moves
-    # repeat their best candidate
-    cand = _top_k(glogits, m)                                  # [E, m]
-    cand = torch.where(root_legal.gather(1, cand), cand, cand[:, :1])
+        # top-m candidates by g + logits; envs with fewer than m legal
+        # moves repeat their best candidate
+        cand = _top_k(glogits, m)                              # [E, m]
+        cand = torch.where(root_legal.gather(1, cand), cand, cand[:, :1])
 
-    def root_stats():
-        n0 = tree.n[:, 0].float()
-        w0 = tree.w[:, 0].float() / w_scale
-        return n0, torch.where(n0 > 0, w0 / n0.clamp(min=1.0), 0.0)
+        def root_stats():
+            n0 = tree.n[:, 0].float()
+            w0 = tree.w[:, 0].float() / w_scale
+            return n0, torch.where(n0 > 0, w0 / n0.clamp(min=1.0), 0.0)
 
-    def cand_scores(cand):
-        """g + logits + σ(q̂) at the current candidates ([E, lanes])."""
+        def cand_scores(cand):
+            """g + logits + σ(q̂) at the current candidates ([E, lanes])."""
+            n0, q = root_stats()
+            return (glogits + _sigma_q(n0, q, c_visit,
+                                       c_scale)).gather(1, cand)
+
+        base = 1
+        for lb, passes in schedule:
+            if cand.shape[1] != lb:  # halve: keep the top-lb survivors
+                cand = cand.gather(1, _top_k(cand_scores(cand), lb))
+            for _ in range(passes):
+                with trace.span("descent"):
+                    paths = search._select_one(
+                        tree.n, tree.w, tree.p, tree.child, tree.node_done,
+                        None, c_puct, depth_limit, 1.0 / w_scale,
+                        root_action=cand)
+                search._expand_and_backup(
+                    env_cfg, evaluate, tree, *paths, base=base,
+                    fixed_w=fixed_w, w_scale=w_scale, prior_dtype=prior_dtype,
+                    add_visits=True)
+                base += lb
+
+        # final action: the best survivor by g + logits + σ(q̂)
+        action = cand.gather(1, cand_scores(cand).argmax(dim=1)[:, None])[:, 0]
         n0, q = root_stats()
-        return (glogits + _sigma_q(n0, q, c_visit, c_scale)).gather(1, cand)
-
-    base = 1
-    for lb, passes in schedule:
-        if cand.shape[1] != lb:  # halve: keep the top-lb survivors
-            cand = cand.gather(1, _top_k(cand_scores(cand), lb))
-        for _ in range(passes):
-            paths = search._select_one(
-                tree.n, tree.w, tree.p, tree.child, tree.node_done, None,
-                c_puct, depth_limit, 1.0 / w_scale, root_action=cand)
-            search._expand_and_backup(
-                env_cfg, evaluate, tree, *paths, base=base, fixed_w=fixed_w,
-                w_scale=w_scale, prior_dtype=prior_dtype, add_visits=True)
-            base += lb
-
-    # final action: the best survivor by g + logits + σ(q̂)
-    action = cand.gather(1, cand_scores(cand).argmax(dim=1)[:, None])[:, 0]
-    n0, q = root_stats()
-    n_sum = n0.sum(-1)
-    w_root = tree.w[:, 0].float().sum(-1) / w_scale
-    root_value = torch.where(n_sum > 0, w_root / n_sum.clamp(min=1.0), 0.0)
-    pi_target = _pi_target(root_logits, root_legal, root_p, root_v, n0, q,
-                           c_visit, c_scale)
-    return GumbelResult(visits=n0, root_value=root_value, priors=root_p,
-                        action=action.int(), pi_target=pi_target)
+        n_sum = n0.sum(-1)
+        w_root = tree.w[:, 0].float().sum(-1) / w_scale
+        root_value = torch.where(n_sum > 0, w_root / n_sum.clamp(min=1.0), 0.0)
+        pi_target = _pi_target(root_logits, root_legal, root_p, root_v, n0, q,
+                               c_visit, c_scale)
+        return GumbelResult(visits=n0, root_value=root_value, priors=root_p,
+                            action=action.int(), pi_target=pi_target)
 
 
 def _run_gumbel_capped(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,

@@ -24,6 +24,12 @@ the port differs only in mechanics:
 
 Randomness comes from ``torch.Generator``s; a caller that needs the JAX
 package's exact noise passes it in as a tensor (``noise=``).
+
+Spans and counters (``utils/trace.py``), named as in the capped search:
+``search`` / ``root_forward``, and per pass ``descent``,
+``leaf_env_step``, ``leaf_forward``, ``expand``, ``backup``; sync sites
+``descent_drain`` and ``descent_step`` in ``_select_one``; counters
+``passes``, ``wavefront_steps``, ``leaves`` and ``expanded``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
+from alphafive_tpu_torch.utils import trace
 
 # evaluator: (board int8[E,A], to_play int8[E], last int32[E])
 #            -> (logits f32[E,A], value f32[E])
@@ -145,7 +152,11 @@ def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
     stopped = torch.zeros(r, dtype=torch.bool, device=dev)
     pn = torch.zeros((r, d), dtype=torch.long, device=dev)
     pa = torch.zeros((r, d), dtype=torch.long, device=dev)
-    while not bool(stopped.all()):
+    steps = 0
+    site = "descent_drain"   # the first read waits for the last pass's work
+    while not trace.read_bool(site, stopped.all()):
+        site = "descent_step"
+        steps += 1
         live = ~stopped
         revisit = tree_done[rows, cur] | (depth >= d)
         p_signed = tree_p[rows, cur].float()
@@ -174,6 +185,7 @@ def _select_one(tree_n, tree_w, tree_p, tree_child, tree_done, vroot,
         act = torch.where(live, torch.where(revisit, -1, a), act)
         cur = torch.where(live & ~stop, ch, cur)
         stopped = stopped | stop
+    trace.count("wavefront_steps", steps)
     out = (cur, act, depth, pn, pa)
     if root_action is None:
         return out
@@ -228,17 +240,18 @@ def _run_pass(env_cfg, evaluate, tree: Tree, *, base: int, lb: int, d: int,
     dn = torch.arange(d, device=dev)
     vroot = torch.zeros((e, a), dtype=torch.float32, device=dev)
     lanes = []
-    for _ in range(lb):
-        lp, act, depth, pn, pa = _select_one(
-            tree.n, tree.w, tree.p, tree.child, tree.node_done, vroot,
-            c_puct, d, 1.0 / w_scale, forced_k)
-        if path_virtual:  # +1 on every traversed edge, for good
-            tree.n.index_put_((earange[:, None].expand_as(pn), pn, pa),
-                              (dn[None, :] < depth[:, None]).int(),
-                              accumulate=True)
-        else:             # +1 on the first edge, for this pass only
-            vroot[earange, pa[:, 0]] += (depth > 0).float()
-        lanes.append((lp, act, depth, pn, pa))
+    with trace.span("descent"):
+        for _ in range(lb):
+            lp, act, depth, pn, pa = _select_one(
+                tree.n, tree.w, tree.p, tree.child, tree.node_done, vroot,
+                c_puct, d, 1.0 / w_scale, forced_k)
+            if path_virtual:  # +1 on every traversed edge, for good
+                tree.n.index_put_((earange[:, None].expand_as(pn), pn, pa),
+                                  (dn[None, :] < depth[:, None]).int(),
+                                  accumulate=True)
+            else:             # +1 on the first edge, for this pass only
+                vroot[earange, pa[:, 0]] += (depth > 0).float()
+            lanes.append((lp, act, depth, pn, pa))
     # in path mode the visits landed at select time
     _expand_and_backup(env_cfg, evaluate, tree,
                        *(torch.stack(x, dim=1) for x in zip(*lanes)),
@@ -260,55 +273,66 @@ def _expand_and_backup(env_cfg, evaluate, tree: Tree, lps, acts, deps, pns,
     dev = tree.n.device
     earange = torch.arange(e, device=dev)
     dn = torch.arange(pns.shape[2], device=dev)
+    trace.count("passes")
+    trace.count("leaves", e * lb)
 
     # revisit lanes (action -1): terminal node or live node at the depth
     # cap — no expansion, back up the leaf's own value
-    is_revisit = acts < 0                                      # [E, lb]
-    safe_act = acts.clamp(min=0)
-    parent = _gather_env(tree, lps)
     flat = lambda x: x.reshape((e * lb,) + x.shape[2:])
     unflat = lambda x: x.reshape((e, lb) + x.shape[1:])
-    stepped = vector.step(env_cfg, parent.map(flat),
-                          flat(safe_act)).map(unflat)
-    leaf = _select_where(is_revisit, parent, stepped)
-
-    # duplicate expansions (two lanes stopping at the same unexpanded edge)
-    # all link to the first lane's node id; child starts at -1 and no
-    # selected edge has a child yet, so adding link + 1 writes the link
-    edge_key = lps * a + safe_act
-    expanding = ~is_revisit
-    same = ((edge_key[:, :, None] == edge_key[:, None, :])
-            & expanding[:, :, None] & expanding[:, None, :])
-    jj = torch.arange(lb, device=dev)
-    first_lane = torch.where(same, jj[None, None, :], lb).min(dim=-1).values
-    is_first = expanding & (first_lane == jj[None, :])
-    link_add = torch.where(is_first, base + first_lane + 1, 0).int()
-    new = slice(base, base + lb)
-    _write_nodes(tree, new, stepped)
-    tree.child.index_put_((earange[:, None].expand_as(lps), lps, safe_act),
-                          link_add, accumulate=True)
+    with trace.span("leaf_env_step"):
+        is_revisit = acts < 0                                  # [E, lb]
+        safe_act = acts.clamp(min=0)
+        parent = _gather_env(tree, lps)
+        stepped = vector.step(env_cfg, parent.map(flat),
+                              flat(safe_act)).map(unflat)
+        leaf = _select_where(is_revisit, parent, stepped)
 
     # ONE batched evaluation per pass
-    logits_f, v_f = evaluate(flat(leaf.board), flat(leaf.to_play),
-                             flat(leaf.last_move))
-    logits, v = unflat(logits_f), unflat(v_f)
-    leaf_value = torch.where(leaf.done,
-                             (leaf.winner * leaf.to_play).float(), v.float())
-    child_legal = stepped.board == 0
-    child_p = masked_softmax(logits, child_legal)
-    tree.p[:, new] = torch.where(child_legal, child_p, -1.0).to(prior_dtype)
+    with trace.span("leaf_forward"):
+        logits_f, v_f = evaluate(flat(leaf.board), flat(leaf.to_play),
+                                 flat(leaf.last_move))
+    with trace.span("expand"):
+        # duplicate expansions (two lanes stopping at the same unexpanded
+        # edge) all link to the first lane's node id; child starts at -1
+        # and no selected edge has a child yet, so adding link + 1 writes
+        # the link
+        edge_key = lps * a + safe_act
+        expanding = ~is_revisit
+        same = ((edge_key[:, :, None] == edge_key[:, None, :])
+                & expanding[:, :, None] & expanding[:, None, :])
+        jj = torch.arange(lb, device=dev)
+        first_lane = torch.where(same, jj[None, None, :],
+                                 lb).min(dim=-1).values
+        is_first = expanding & (first_lane == jj[None, :])
+        trace.count_device("expanded", is_first)
+        link_add = torch.where(is_first, base + first_lane + 1, 0).int()
+        new = slice(base, base + lb)
+        _write_nodes(tree, new, stepped)
+        tree.child.index_put_((earange[:, None].expand_as(lps), lps,
+                               safe_act), link_add, accumulate=True)
+
+        logits, v = unflat(logits_f), unflat(v_f)
+        leaf_value = torch.where(leaf.done, (leaf.winner
+                                             * leaf.to_play).float(),
+                                 v.float())
+        child_legal = stepped.board == 0
+        child_p = masked_softmax(logits, child_legal)
+        tree.p[:, new] = torch.where(child_legal, child_p,
+                                     -1.0).to(prior_dtype)
 
     # backup: edge j of a path of length L gets leaf_value * (-1)^(L - j)
     # and one visit; pad slots add 0 at (0, 0)
-    on_path = dn[None, None, :] < deps[:, :, None]             # [E, lb, D]
-    sign = torch.where((deps[:, :, None] - dn) % 2 == 0, 1.0, -1.0)
-    vals = torch.where(on_path, sign * leaf_value[:, :, None], 0.0)
-    if fixed_w:
-        vals = torch.round(vals * w_scale).int()
-    idx = (earange[:, None, None].expand_as(pns), pns, pas)
-    tree.w.index_put_(idx, vals, accumulate=True)
-    if add_visits:
-        tree.n.index_put_(idx, on_path.int(), accumulate=True)
+    with trace.span("backup"):
+        on_path = dn[None, None, :] < deps[:, :, None]         # [E, lb, D]
+        sign = torch.where((deps[:, :, None] - dn) % 2 == 0, 1.0, -1.0)
+        vals = torch.where(on_path, sign * leaf_value[:, :, None], 0.0)
+        if fixed_w:
+            vals = torch.round(vals * w_scale).int()
+        idx = (earange[:, None, None].expand_as(pns), pns, pas)
+        tree.w.index_put_(idx, vals, accumulate=True)
+        if add_visits:
+            tree.n.index_put_(idx, on_path.int(), accumulate=True)
 
 
 @torch.no_grad()
@@ -351,36 +375,42 @@ def run_mcts(env_cfg: EnvConfig, mcts_cfg: MCTSConfig, evaluate: Evaluator,
     # forced playouts only perturb noisy self-play searches
     forced_k = float(mcts_cfg.forced_playouts_k if add_noise else 0.0)
 
-    tree = _tree_init(env_cfg, e, nn, prior_dtype, fixed_w,
-                      state.board.device)
-    _write_nodes(tree, 0, state)
-    root_logits, _ = evaluate(state.board, state.to_play, state.last_move)
-    root_legal = state.board == 0
-    root_p = masked_softmax(root_logits, root_legal)
-    if add_noise:
-        if noise is None:
-            noise = dirichlet_noise(generator, mcts_cfg.dirichlet_alpha,
-                                    root_legal)
-        eps = float(mcts_cfg.dirichlet_eps)
-        root_p = (1.0 - eps) * root_p + eps * noise
-    # sign-masked priors: selection reads legality from the prior row
-    tree.p[:, 0] = torch.where(root_legal, root_p, -1.0).to(prior_dtype)
+    with trace.span("search"):
+        tree = _tree_init(env_cfg, e, nn, prior_dtype, fixed_w,
+                          state.board.device)
+        _write_nodes(tree, 0, state)
+        with trace.span("root_forward"):
+            root_logits, _ = evaluate(state.board, state.to_play,
+                                      state.last_move)
+        root_legal = state.board == 0
+        root_p = masked_softmax(root_logits, root_legal)
+        if add_noise:
+            if noise is None:
+                noise = dirichlet_noise(generator, mcts_cfg.dirichlet_alpha,
+                                        root_legal)
+            eps = float(mcts_cfg.dirichlet_eps)
+            root_p = (1.0 - eps) * root_p + eps * noise
+        # sign-masked priors: selection reads legality from the prior row
+        tree.p[:, 0] = torch.where(root_legal, root_p, -1.0).to(prior_dtype)
 
-    lb = max(1, int(mcts_cfg.leaf_batch))
-    while sims % lb:
-        lb -= 1  # runtime budgets round down to the largest divisor
-    path_virtual = mcts_cfg.virtual_mode == "path" and lb > 1
-    for p_ in range(sims // lb):
-        _run_pass(env_cfg, evaluate, tree, base=1 + p_ * lb, lb=lb,
-                  d=depth_limit, path_virtual=path_virtual, fixed_w=fixed_w,
-                  w_scale=w_scale, prior_dtype=prior_dtype, c_puct=c_puct,
-                  forced_k=forced_k)
+        lb = max(1, int(mcts_cfg.leaf_batch))
+        while sims % lb:
+            lb -= 1  # runtime budgets round down to the largest divisor
+        path_virtual = mcts_cfg.virtual_mode == "path" and lb > 1
+        for p_ in range(sims // lb):
+            _run_pass(env_cfg, evaluate, tree, base=1 + p_ * lb, lb=lb,
+                      d=depth_limit, path_virtual=path_virtual,
+                      fixed_w=fixed_w, w_scale=w_scale,
+                      prior_dtype=prior_dtype, c_puct=c_puct,
+                      forced_k=forced_k)
 
-    visits = tree.n[:, 0].float()
-    n_sum = visits.sum(-1)
-    w_root = tree.w[:, 0].float().sum(-1) / w_scale
-    root_value = torch.where(n_sum > 0, w_root / n_sum.clamp(min=1.0), 0.0)
-    return SearchResult(visits=visits, root_value=root_value, priors=root_p)
+        visits = tree.n[:, 0].float()
+        n_sum = visits.sum(-1)
+        w_root = tree.w[:, 0].float().sum(-1) / w_scale
+        root_value = torch.where(n_sum > 0, w_root / n_sum.clamp(min=1.0),
+                                 0.0)
+        return SearchResult(visits=visits, root_value=root_value,
+                            priors=root_p)
 
 
 def pi_from_visits(visits: torch.Tensor, temperature: torch.Tensor,

@@ -33,9 +33,17 @@ them into the real visits and value sums it reads, through the same
 depth index its virtual visits read, and its backup scatters both passes
 in one ``index_put_``. Every fold adds integers (visits) or multiples of
 1/64 (value sums) in f32, all below 2^24, so each add is exact and the
-search is bit-identical to scattering every pass. ``backup_scatters``
-counts the stats scatters (50 a 400-sim, ``leaf_batch`` 8 search; 25
-with deferral).
+search is bit-identical to scattering every pass. The counter
+``backup_scatters`` (``utils/trace.py``) counts the stats scatters (50 a
+400-sim, ``leaf_batch`` 8 search; 25 with deferral).
+
+Spans (``utils/trace.py``): ``search`` / ``root_forward``, and per pass
+``descent``, ``leaf_env_step``, ``leaf_forward``, ``expand``, ``backup``.
+The descent's host reads are the sync sites ``descent_drain`` (a pass's
+first, which waits for the previous pass's queued work) and
+``descent_step`` (every later one). Counters: ``passes``,
+``wavefront_steps``, ``leaves`` (E·lb a pass) and, on the device while
+spans are on, ``expanded`` (the leaves that expanded a node).
 """
 
 from __future__ import annotations
@@ -52,8 +60,15 @@ from alphafive_tpu_torch.mcts.search import (Evaluator, SearchResult,
                                              _gather_env, _puct_scores_n,
                                              _select_where, _write_nodes,
                                              dirichlet_noise, masked_softmax)
+from alphafive_tpu_torch.utils import trace
 
-backup_scatters = 0  # stats scatters (backups) since the last reset
+
+def __getattr__(name: str):
+    """``backup_scatters`` as a module attribute: a view of the counter,
+    as ``perfbench/run.py`` reads it."""
+    if name == "backup_scatters":
+        return trace.counter(name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclasses.dataclass
@@ -117,7 +132,9 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
     sel = torch.full((e, lb), -1, dtype=torch.long, device=dev)
     ppas = torch.zeros((e, lb, d), dtype=torch.long, device=dev)
     k = 0
-    while not bool(stopped.all()):
+    site = "descent_drain"   # the first read waits for the last pass's work
+    while not trace.read_bool(site, stopped.all()):
+        site = "descent_step"
         active = (lanes[None, :] <= k) & ~stopped               # [E,LB]
         revisit = tree_done[eidx, cur] | (depth >= d)
         p_signed = tree_p[eidx, cur].float()                    # [E,LB,C]
@@ -172,6 +189,7 @@ def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
         stopped = stopped | (active & stop_now)
         cur = torch.where(active & ~stop_now, ch, cur)
         k += 1
+    trace.count("wavefront_steps", k)
     return cur, sel, depth, ppas
 
 
@@ -191,56 +209,65 @@ def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
     else None."""
     e = tree.node_done.shape[0]
     dev = tree.node_done.device
-    lps, slots, deps, ppas = _select_lanes(
-        tree.n, tree.n if packed else tree.w, tree.p, tree.child,
-        tree.node_done, c_puct, d, 1.0 / w_scale, forced_k, c, packed, lb,
-        forced_slots, pending)
+    trace.count("passes")
+    trace.count("leaves", e * lb)
+    with trace.span("descent"):
+        lps, slots, deps, ppas = _select_lanes(
+            tree.n, tree.n if packed else tree.w, tree.p, tree.child,
+            tree.node_done, c_puct, d, 1.0 / w_scale, forced_k, c, packed,
+            lb, forced_slots, pending)
 
-    is_revisit = slots < 0
-    safe_slot = slots.clamp(min=0)
-    eidx2 = torch.arange(e, device=dev)[:, None]
-    safe_act = tree.cand_act[eidx2, lps, safe_slot].long()
-
-    parent = _gather_env(tree, lps)
     flat = lambda x: x.reshape((e * lb,) + x.shape[2:])
     unflat = lambda x: x.reshape((e, lb) + x.shape[1:])
-    stepped = vector.step(env_cfg, parent.map(flat),
-                          flat(safe_act)).map(unflat)
-    leaf = _select_where(is_revisit, parent, stepped)
-
-    # duplicate expansions (two lanes stopping at the same unexpanded
-    # edge) all link to the first lane's node id
-    edge_key = lps * c + safe_slot
-    expanding = ~is_revisit
-    same = ((edge_key[:, :, None] == edge_key[:, None, :])
-            & expanding[:, :, None] & expanding[:, None, :])
-    jj = torch.arange(lb, device=dev)
-    first_lane = torch.where(same, jj[None, None, :], lb).min(dim=-1).values
-    is_first = expanding & (first_lane == jj[None, :])
-    link_add = torch.where(is_first, base + first_lane + 1, 0).int()
+    with trace.span("leaf_env_step"):
+        is_revisit = slots < 0
+        safe_slot = slots.clamp(min=0)
+        eidx2 = torch.arange(e, device=dev)[:, None]
+        safe_act = tree.cand_act[eidx2, lps, safe_slot].long()
+        parent = _gather_env(tree, lps)
+        stepped = vector.step(env_cfg, parent.map(flat),
+                              flat(safe_act)).map(unflat)
+        leaf = _select_where(is_revisit, parent, stepped)
 
     # ONE batched evaluation per pass
-    logits_f, v_f = evaluate(flat(leaf.board), flat(leaf.to_play),
-                             flat(leaf.last_move))
-    logits, v = unflat(logits_f), unflat(v_f)
-    leaf_value = torch.where(leaf.done,
-                             (leaf.winner * leaf.to_play).float(), v.float())
-    child_legal = stepped.board == 0
-    child_p = masked_softmax(logits, child_legal)
-    slot_p, slot_act = _top_c(torch.where(child_legal, child_p, -1.0), c,
-                              prior_dtype)
+    with trace.span("leaf_forward"):
+        logits_f, v_f = evaluate(flat(leaf.board), flat(leaf.to_play),
+                                 flat(leaf.last_move))
+    with trace.span("expand"):
+        logits, v = unflat(logits_f), unflat(v_f)
+        leaf_value = torch.where(leaf.done, (leaf.winner
+                                             * leaf.to_play).float(),
+                                 v.float())
+        # duplicate expansions (two lanes stopping at the same unexpanded
+        # edge) all link to the first lane's node id
+        edge_key = lps * c + safe_slot
+        expanding = ~is_revisit
+        same = ((edge_key[:, :, None] == edge_key[:, None, :])
+                & expanding[:, :, None] & expanding[:, None, :])
+        jj = torch.arange(lb, device=dev)
+        first_lane = torch.where(same, jj[None, None, :],
+                                 lb).min(dim=-1).values
+        is_first = expanding & (first_lane == jj[None, :])
+        trace.count_device("expanded", is_first)
+        link_add = torch.where(is_first, base + first_lane + 1, 0).int()
+        child_legal = stepped.board == 0
+        child_p = masked_softmax(logits, child_legal)
+        slot_p, slot_act = _top_c(torch.where(child_legal, child_p, -1.0),
+                                  c, prior_dtype)
 
-    new = slice(base, base + lb)
-    _write_nodes(tree, new, stepped)
-    tree.p[:, new] = slot_p
-    tree.cand_act[:, new] = slot_act
-    # child starts at -1 and no selected edge has a child yet, so adding
-    # link + 1 writes the link; revisit and duplicate lanes add 0
-    tree.child.index_put_((eidx2.expand_as(lps), lps, safe_slot), link_add,
-                          accumulate=True)
+        new = slice(base, base + lb)
+        _write_nodes(tree, new, stepped)
+        tree.p[:, new] = slot_p
+        tree.cand_act[:, new] = slot_act
+        # child starts at -1 and no selected edge has a child yet, so
+        # adding link + 1 writes the link; revisit and duplicate lanes
+        # add 0
+        tree.child.index_put_((eidx2.expand_as(lps), lps, safe_slot),
+                              link_add, accumulate=True)
 
-    return _backup(tree, ppas, deps, leaf_value, packed=packed,
-                   w_scale=w_scale, pending=pending, defer=defer)
+    with trace.span("backup"):
+        return _backup(tree, ppas, deps, leaf_value, packed=packed,
+                       w_scale=w_scale, pending=pending, defer=defer)
 
 
 def _backup(tree: CappedTree, ppas, deps, leaf_value, *, packed, w_scale,
@@ -250,7 +277,6 @@ def _backup(tree: CappedTree, ppas, deps, leaf_value, *, packed, w_scale,
     With `defer` nothing is scattered and (ppas, value units, deps) is
     returned for the next pass; with `pending` both passes' deltas go
     into one ``index_put_``. Counts ``backup_scatters``."""
-    global backup_scatters
     e, _, d = ppas.shape
     dev = ppas.device
     dn = torch.arange(d, device=dev)[None, None, :]
@@ -277,7 +303,7 @@ def _backup(tree: CappedTree, ppas, deps, leaf_value, *, packed, w_scale,
             raise ValueError("deferred backup needs packed stats")
         tree.n.index_put_(idx, on_path.int(), accumulate=True)
         tree.w.index_put_(idx, vals, accumulate=True)
-    backup_scatters += 1
+    trace.count("backup_scatters")
     return None
 
 
@@ -346,58 +372,64 @@ def run_mcts_capped(env_cfg: EnvConfig, mcts_cfg: MCTSConfig,
         raise ValueError("tree too large: nodes <= 32767 and branch_cap "
                          "<= 256 (paths pack node << 8 | slot)")
 
-    tree = _capped_tree_init(state, nn, c, packed, prior_dtype)
+    with trace.span("search"):
+        tree = _capped_tree_init(state, nn, c, packed, prior_dtype)
 
-    root_logits, _ = evaluate(state.board, state.to_play, state.last_move)
-    root_legal = state.board == 0
-    root_p = masked_softmax(root_logits, root_legal)
-    if add_noise:
-        if noise is None:
-            noise = dirichlet_noise(generator, mcts_cfg.dirichlet_alpha,
-                                    root_legal)
-        eps = float(mcts_cfg.dirichlet_eps)
-        root_p = (1.0 - eps) * root_p + eps * noise
-    root_slot_p, root_slot_act = _top_c(
-        torch.where(root_legal, root_p, -1.0), c, prior_dtype)
-    tree.p[:, 0] = root_slot_p
-    tree.cand_act[:, 0] = root_slot_act
+        with trace.span("root_forward"):
+            root_logits, _ = evaluate(state.board, state.to_play,
+                                      state.last_move)
+        root_legal = state.board == 0
+        root_p = masked_softmax(root_logits, root_legal)
+        if add_noise:
+            if noise is None:
+                noise = dirichlet_noise(generator, mcts_cfg.dirichlet_alpha,
+                                        root_legal)
+            eps = float(mcts_cfg.dirichlet_eps)
+            root_p = (1.0 - eps) * root_p + eps * noise
+        root_slot_p, root_slot_act = _top_c(
+            torch.where(root_legal, root_p, -1.0), c, prior_dtype)
+        tree.p[:, 0] = root_slot_p
+        tree.cand_act[:, 0] = root_slot_act
 
-    lb = max(1, int(mcts_cfg.leaf_batch))
-    while sims % lb:
-        lb -= 1
-    passes = sims // lb
+        lb = max(1, int(mcts_cfg.leaf_batch))
+        while sims % lb:
+            lb -= 1
+        passes = sims // lb
 
-    def pass_(p_, d, pending=None, defer=False):
-        return _run_pass(env_cfg, evaluate, tree, base=1 + p_ * lb, d=d,
-                         lb=lb, c=c, packed=packed, w_scale=w_scale,
-                         prior_dtype=prior_dtype, c_puct=c_puct,
-                         forced_k=forced_k, pending=pending, defer=defer)
+        def pass_(p_, d, pending=None, defer=False):
+            return _run_pass(env_cfg, evaluate, tree, base=1 + p_ * lb,
+                             d=d, lb=lb, c=c, packed=packed,
+                             w_scale=w_scale, prior_dtype=prior_dtype,
+                             c_puct=c_puct, forced_k=forced_k,
+                             pending=pending, defer=defer)
 
-    defer_ok = packed and int(mcts_cfg.backup_interval) >= 2
-    for lo, hi, d in _stages(passes, depth_limit):
-        if not defer_ok:
-            for p_ in range(lo, hi):
-                pass_(p_, d)
-            continue
-        # pairs (2q, 2q + 1) inside the stage, as JAX pairs them: a pair
-        # never crosses a stage, whose depth cap sizes the pending buffers.
-        # Every stage starts at an even pass (_stages), so the pairs tile
-        # it and an odd end runs its last pass alone
-        for q in range(lo // 2, hi // 2):
-            pass_(2 * q + 1, d, pending=pass_(2 * q, d, defer=True))
-        if hi % 2:
-            pass_(hi - 1, d)
+        defer_ok = packed and int(mcts_cfg.backup_interval) >= 2
+        for lo, hi, d in _stages(passes, depth_limit):
+            if not defer_ok:
+                for p_ in range(lo, hi):
+                    pass_(p_, d)
+                continue
+            # pairs (2q, 2q + 1) inside the stage, as JAX pairs them: a
+            # pair never crosses a stage, whose depth cap sizes the pending
+            # buffers. Every stage starts at an even pass (_stages), so the
+            # pairs tile it and an odd end runs its last pass alone
+            for q in range(lo // 2, hi // 2):
+                pass_(2 * q + 1, d, pending=pass_(2 * q, d, defer=True))
+            if hi % 2:
+                pass_(hi - 1, d)
 
-    # slot visit counts back onto the action space
-    if packed:
-        n0 = (tree.n[:, 0, :] & 0xFFFF).float()                 # [E, C]
-        w_root = (tree.n[:, 0, :] >> 16).float().sum(-1) / w_scale
-    else:
-        n0 = tree.n[:, 0, :].float()
-        w_root = tree.w[:, 0, :].sum(-1) / w_scale
-    act0 = tree.cand_act[:, 0, :].long()
-    visits = torch.zeros((e, a), dtype=torch.float32, device=dev)
-    visits.scatter_add_(1, act0, n0)
-    n_sum = n0.sum(-1)
-    root_value = torch.where(n_sum > 0, w_root / n_sum.clamp(min=1.0), 0.0)
-    return SearchResult(visits=visits, root_value=root_value, priors=root_p)
+        # slot visit counts back onto the action space
+        if packed:
+            n0 = (tree.n[:, 0, :] & 0xFFFF).float()             # [E, C]
+            w_root = (tree.n[:, 0, :] >> 16).float().sum(-1) / w_scale
+        else:
+            n0 = tree.n[:, 0, :].float()
+            w_root = tree.w[:, 0, :].sum(-1) / w_scale
+        act0 = tree.cand_act[:, 0, :].long()
+        visits = torch.zeros((e, a), dtype=torch.float32, device=dev)
+        visits.scatter_add_(1, act0, n0)
+        n_sum = n0.sum(-1)
+        root_value = torch.where(n_sum > 0, w_root / n_sum.clamp(min=1.0),
+                                 0.0)
+        return SearchResult(visits=visits, root_value=root_value,
+                            priors=root_p)

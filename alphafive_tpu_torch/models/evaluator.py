@@ -19,6 +19,7 @@ from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
 from alphafive_tpu_torch.models.resnet import (FusedPolicyValueNet,
                                                PolicyValueNet)
+from alphafive_tpu_torch.utils import trace
 
 
 def net_evaluator(env_cfg: EnvConfig, net_cfg: NetConfig, params,
@@ -31,7 +32,8 @@ def net_evaluator(env_cfg: EnvConfig, net_cfg: NetConfig, params,
     ``PolicyValueNet`` (`batch_stats` None): the evaluator is then built
     from a snapshot of its weights on its own device (`device` is not
     read), as the JAX iteration rebuilds its evaluator from the learner's
-    weights each iteration."""
+    weights each iteration. The span ``features`` (``utils/trace.py``)
+    times the input planes; the net's own spans follow."""
     if isinstance(params, PolicyValueNet):
         if net_cfg.use_pallas:
             model = FusedPolicyValueNet.from_module(env_cfg, net_cfg, params)
@@ -45,7 +47,9 @@ def net_evaluator(env_cfg: EnvConfig, net_cfg: NetConfig, params,
                                          batch_stats, device)
 
     def evaluate(board, to_play, last):
-        return model(vector.features(env_cfg, board, to_play, last))
+        with trace.span("features"):
+            x = vector.features(env_cfg, board, to_play, last)
+        return model(x)
 
     return evaluate
 

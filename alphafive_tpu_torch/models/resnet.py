@@ -21,6 +21,9 @@ Three forwards, as in the JAX package:
   ``PolicyValueNet`` on its device, as the JAX iteration refolds its
   evaluator from the learner's weights.
 
+Both inference forwards span (``utils/trace.py``) their ``stem`` and
+their ``heads``; the residual blocks between them are the resblock.
+
 Weights arrive as flax-layout trees (``train.checkpoint.load_model`` or
 ``init_params``), and ``PolicyValueNet.to_flax`` gives them back in that
 layout. The heads flatten NHWC (h, w, c) as flax does, so the FC rows need
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 
 from alphafive_tpu_torch.config import EnvConfig, NetConfig
 from alphafive_tpu_torch.ops import resblock as rb
+from alphafive_tpu_torch.utils import trace
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.99   # flax's: running = 0.99 · running + 0.01 · batch
@@ -276,12 +280,14 @@ class PolicyValueNet(nn.Module):
 
     @torch.no_grad()
     def forward(self, features: torch.Tensor):
-        x = features.permute(0, 3, 1, 2).to(self.dtype)
-        x = torch.relu(self.stem(x))
+        with trace.span("stem"):
+            x = features.permute(0, 3, 1, 2).to(self.dtype)
+            x = torch.relu(self.stem(x))
         for c1, c2 in self.blocks:
             y = torch.relu(c1(x))
             x = torch.relu(x + c2(y))
-        return self._heads(self.policy(x), self.value(x))
+        with trace.span("heads"):
+            return self._heads(self.policy(x), self.value(x))
 
     def forward_train(self, features: torch.Tensor):
         """Training forward, with autograd: ((logits, value), [(new running
@@ -361,20 +367,22 @@ class FusedPolicyValueNet(nn.Module):
     @torch.no_grad()
     def forward(self, features: torch.Tensor):
         dt = self.dtype
-        x = features.to(dt).float().permute(0, 3, 1, 2)
-        x = F.conv2d(x, self.stem_w, padding=1).permute(0, 2, 3, 1)
-        x = torch.relu(x + self.stem_b).to(dt).contiguous()
+        with trace.span("stem"):
+            x = features.to(dt).float().permute(0, 3, 1, 2)
+            x = F.conv2d(x, self.stem_w, padding=1).permute(0, 2, 3, 1)
+            x = torch.relu(x + self.stem_b).to(dt).contiguous()
         block = rb.fused_resblock_reference if self.plain else \
             rb.fused_resblock
         for w1, b1, w2, b2 in self.blocks:
             x = block(x, w1, b1, w2, b2)
-        bsz = x.shape[0]
-        xf = x.float()
-        p = torch.relu(xf @ self.wp + self.bp).reshape(bsz, -1)
-        wk, bk = self.fc["policy_fc"]
-        logits = p @ wk + bk
-        v = torch.relu(xf @ self.wv + self.bv).reshape(bsz, -1)
-        wk, bk = self.fc["value_fc1"]
-        v = torch.relu(v @ wk + bk)
-        wk, bk = self.fc["value_fc2"]
-        return logits, torch.tanh(v @ wk + bk)[:, 0]
+        with trace.span("heads"):
+            bsz = x.shape[0]
+            xf = x.float()
+            p = torch.relu(xf @ self.wp + self.bp).reshape(bsz, -1)
+            wk, bk = self.fc["policy_fc"]
+            logits = p @ wk + bk
+            v = torch.relu(xf @ self.wv + self.bv).reshape(bsz, -1)
+            wk, bk = self.fc["value_fc1"]
+            v = torch.relu(v @ wk + bk)
+            wk, bk = self.fc["value_fc2"]
+            return logits, torch.tanh(v @ wk + bk)[:, 0]

@@ -6,7 +6,9 @@ a plain C interface, ``build/kernels/<hash>/libalphafive_kernels.so`` at
 the repository root, loaded with ctypes. ``<hash>`` covers the sources and
 the flags, so an edit rebuilds and an unchanged tree reuses the library.
 The build runs at first use, never at import: hosts without nvcc (the CPU
-test hosts) import every module and never get here.
+test hosts) import every module and never get here. The first load counts
+``kernel_library_builds`` (1 where nvcc ran) and its wall milliseconds,
+build included, as ``kernel_library_load_ms`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+
+from alphafive_tpu_torch.utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu")))
@@ -94,6 +99,7 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
+    t0 = time.perf_counter()
     out_dir = os.path.join(BUILD_ROOT, _digest())
     so = os.path.join(out_dir, "libalphafive_kernels.so")
     if not os.path.exists(so):
@@ -106,7 +112,10 @@ def load() -> ctypes.CDLL:
         tmp = f"{so}.{tag}.tmp"
         _run([[nvcc, "-shared", "-o", tmp, *objs]], out_dir)
         os.replace(tmp, so)
+        trace.count("kernel_library_builds")
     lib = ctypes.CDLL(so)
     _bind(lib)
     _lib = lib
+    trace.count("kernel_library_load_ms",
+                round(1e3 * (time.perf_counter() - t0)))
     return lib

@@ -11,6 +11,12 @@ kernel ``csrc/resblock.cu`` on CUDA tensors and runs
 ``fused_resblock_reference`` on CPU tensors; on any other device it raises.
 Layout is the JAX package's: x NHWC ``[B, H, W, C]``, packed weights
 ``[9, Cin, Cout]`` (tap = (dy + 1) * 3 + (dx + 1)), f32 biases ``[C]``.
+
+Counters (``utils/trace.py``): ``resblock_launches``, the same launches
+by the variant the library ran as ``variant_launches.<variant>`` (see
+`variant`), and ``pack_launches``, the streaming variant's tap packs (one
+before each streaming block, and each `pack_streaming_taps` on CUDA
+tensors).
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from alphafive_tpu_torch.utils import trace
 
 CHANNELS = (64, 96, 128)  # the widths the fast variants are built for
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
@@ -177,13 +185,19 @@ def split_in_smem(b: int, h: int, w: int, c: int) -> bool:
 # csrc/resblock.cu's variant codes (alphafive_resblock_variant)
 VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 4: "general",
             5: "split"}
-resblock_launches = 0  # kernel launches since the last reset
-# the same launches by the variant the library ran (see `variant`)
-variant_launches = dict.fromkeys(VARIANTS.values(), 0)
-# launches of the streaming variant's tap pack (one before each streaming
-# block, and each `pack_streaming_taps` on CUDA tensors)
-pack_launches = 0
 _TAPS = 18  # both convs' taps, as the streaming variant streams them
+
+
+def __getattr__(name: str):
+    """``resblock_launches``, ``pack_launches`` and ``variant_launches``
+    (a dict by variant) as module attributes: views of the counters, as
+    ``perfbench/run.py`` reads them."""
+    if name in ("resblock_launches", "pack_launches"):
+        return trace.counter(name)
+    if name == "variant_launches":
+        return {v: trace.counter("variant_launches." + v)
+                for v in VARIANTS.values()}
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def pack_conv_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -236,7 +250,6 @@ def pack_streaming_taps_reference(w1, w2) -> torch.Tensor:
 def pack_streaming_taps(w1, w2) -> torch.Tensor:
     """The streaming variant's tap pack on its own: the kernel on CUDA
     tensors (bf16, C a multiple of 8), the plain version on CPU ones."""
-    global pack_launches
     if w1.device.type == "cpu":
         return pack_streaming_taps_reference(w1, w2)
     if w1.device.type != "cuda":
@@ -258,7 +271,7 @@ def pack_streaming_taps(w1, w2) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"tap pack launch failed: CUDA error {err}")
-    pack_launches += 1
+    trace.count("pack_launches")
     return taps
 
 
@@ -415,7 +428,6 @@ def _library_choice(lib, x, kind: str) -> tuple:
 
 def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
     """x [B,H,W,C]; w1/w2 [9,C,C] packed (BN folded); b1/b2 f32 [C]."""
-    global resblock_launches, pack_launches
     if x.device.type == "cpu":
         return fused_resblock_reference(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
@@ -438,10 +450,10 @@ def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"resblock kernel launch failed: CUDA error {err}")
-    resblock_launches += 1
-    variant_launches[ran] += 1
+    trace.count("resblock_launches")
+    trace.count("variant_launches." + ran)
     if ran == "streaming":   # the library packed the taps first
-        pack_launches += 1
+        trace.count("pack_launches")
     return out
 
 

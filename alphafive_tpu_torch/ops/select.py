@@ -20,6 +20,7 @@ the kernel's contract on every device, then launches the hand-written
 kernel ``csrc/select.cu`` on CUDA tensors and runs
 ``select_batch_reference`` on CPU tensors; on any other device it raises.
 The two are bit-equal: one flipped argmax would change the visit counts.
+Kernel launches are counted as ``select_launches`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -28,11 +29,19 @@ from typing import Tuple
 
 import torch
 
+from alphafive_tpu_torch.utils import trace
+
 # packed-section indices
 SEC_N, SEC_W, SEC_P, SEC_CHILD, SEC_META = 0, 1, 2, 3, 4
 NUM_SEC = 8
 
-select_launches = 0  # kernel launches since the last reset
+
+def __getattr__(name: str):
+    """``select_launches`` as a module attribute: a view of the counter,
+    as ``perfbench/run.py`` reads it."""
+    if name == "select_launches":
+        return trace.counter(name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def pad_actions(a: int) -> int:
@@ -116,7 +125,6 @@ def select_batch(packed: torch.Tensor, num_actions: int, depth_limit: int,
     """packed f32[E, NN, 8, A_pad] → (leaf i32[E], act i32[E] (-1 =
     revisit), depth i32[E], path nodes i32[E, D], path actions i32[E, D]),
     path entries zero beyond each env's depth."""
-    global select_launches
     _check(packed, num_actions, depth_limit)
     if packed.device.type == "cpu":
         return select_batch_reference(packed, num_actions, depth_limit,
@@ -138,5 +146,5 @@ def select_batch(packed: torch.Tensor, num_actions: int, depth_limit: int,
         depth.data_ptr(), pn.data_ptr(), pa.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"select kernel launch failed: CUDA error {err}")
-    select_launches += 1
+    trace.count("select_launches")
     return leaf, act, depth, pn, pa

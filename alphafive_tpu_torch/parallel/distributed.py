@@ -46,6 +46,8 @@ from typing import Any, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from alphafive_tpu_torch.utils import trace
+
 # the host group's timeout: long enough for rank 0's ladder eval, which the
 # other ranks wait out (2 games against the 200-rollout anchor took
 # 175-323 s on one H100 80GB HBM3 at 700 W, PERF.md; the anchor's
@@ -182,7 +184,7 @@ def all_reduce_sum(values: Sequence[float], group, device) -> List[float]:
     all-reduce of a tensor on `device`, which NCCL needs on the card)."""
     t = torch.tensor(list(values), dtype=torch.float64, device=device)
     dist.all_reduce(t, group=group)
-    return t.tolist()
+    return trace.read_list("all_reduce_sum", t)
 
 
 @torch.no_grad()

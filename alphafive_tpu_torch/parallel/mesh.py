@@ -46,6 +46,11 @@ and the KL stop are read on the host (one device read per learner step
 when the stop is on); steps after a KL stop are not run at all (JAX
 computes and discards them; the state is the same). Metrics come back as
 host floats under the JAX package's keys.
+
+Spans (``utils/trace.py``): ``iteration`` / ``selfplay``,
+``resolve_chunk``, ``ring_write``, ``learner_phase`` / ``sample``,
+``train_step``, ``kl_probe``; sync sites ``kl_probe`` (the KL stop's read)
+and ``iteration_metrics`` (the metrics' one read).
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from alphafive_tpu_torch.replay import buffer as replay_buffer
 from alphafive_tpu_torch.replay.buffer import ReplayBuffer
 from alphafive_tpu_torch.train import actor, learner
 from alphafive_tpu_torch.train.learner import TrainState
+from alphafive_tpu_torch.utils import trace
 
 # the learner's metrics, zero on an iteration without update
 AUX_KEYS = learner.AUX_KEYS + ("grad_norm", "lr_scale", "kl_update",
@@ -163,32 +169,42 @@ def learner_phase(cfg: RunConfig, ts: TrainState, buf: ReplayBuffer,
     is the mean over its ranks, so they stop together."""
     world, _ = _world_rank(group)
     bs, tc = cfg.replay.batch_size // world, cfg.train
-    probe = replay_buffer.sample(cfg.env, buf, bs, generator)[0]
-    old_logp = policy_logp(ts.net, probe)
-    p_old = old_logp.exp()
+    with trace.span("learner_phase"):
+        with trace.span("sample"):
+            probe = replay_buffer.sample(cfg.env, buf, bs, generator)[0]
+        with trace.span("kl_probe"):
+            old_logp = policy_logp(ts.net, probe)
+            p_old = old_logp.exp()
 
-    def probe_kl():
-        new_logp = policy_logp(ts.net, probe)
-        kl = (p_old * (old_logp - new_logp)).sum(-1).mean()
-        return (kl if group is None
-                else distributed.all_reduce_mean([kl], group)[0])
+        def probe_kl():
+            new_logp = policy_logp(ts.net, probe)
+            kl = (p_old * (old_logp - new_logp)).sum(-1).mean()
+            return (kl if group is None
+                    else distributed.all_reduce_mean([kl], group)[0])
 
-    auxs = []
-    for _ in range(tc.learner_steps_per_iter):
-        batch = replay_buffer.sample(cfg.env, buf, bs, generator)
-        ts, aux = learner.train_step(cfg.env, cfg.net, tc, ts, batch,
-                                     group=group)
-        auxs.append(aux)
-        if (tc.kl_stop_factor > 0
-                and bool(probe_kl() > tc.kl_stop_factor * tc.kl_target)):
-            break
-    aux = {k: torch.stack([a[k] for a in auxs]).sum() / len(auxs)
-           for k in auxs[0]}
-    aux["executed_steps"] = float(len(auxs))
-    kl = probe_kl()
-    learner.adapt_lr_scale(ts, kl, tc.kl_target, tc.lr_scale_max)
-    aux["kl_update"] = kl
-    return aux
+        auxs = []
+        for _ in range(tc.learner_steps_per_iter):
+            with trace.span("sample"):
+                batch = replay_buffer.sample(cfg.env, buf, bs, generator)
+            with trace.span("train_step"):
+                ts, aux = learner.train_step(cfg.env, cfg.net, tc, ts, batch,
+                                             group=group)
+            auxs.append(aux)
+            if tc.kl_stop_factor > 0:
+                with trace.span("kl_probe"):
+                    stop = trace.read_bool(
+                        "kl_probe",
+                        probe_kl() > tc.kl_stop_factor * tc.kl_target)
+                if stop:
+                    break
+        with trace.span("kl_probe"):
+            aux = {k: torch.stack([a[k] for a in auxs]).sum() / len(auxs)
+                   for k in auxs[0]}
+            aux["executed_steps"] = float(len(auxs))
+            kl = probe_kl()
+            learner.adapt_lr_scale(ts, kl, tc.kl_target, tc.lr_scale_max)
+            aux["kl_update"] = kl
+        return aux
 
 
 def make_train_iteration(cfg: RunConfig, group=None) -> Callable[
@@ -201,57 +217,63 @@ def make_train_iteration(cfg: RunConfig, group=None) -> Callable[
     non-finite metric raises ``FloatingPointError``."""
 
     def iteration(carry: TrainCarry):
-        ts, buf, gen = carry.train_state, carry.buffer, carry.generator
-        dev = buf.board.device
-        evaluate = net_evaluator(cfg.env, cfg.net, ts.net)
-        env_state, recs, stats = actor.selfplay_record(
-            cfg.env, cfg.mcts, evaluate, carry.env_state, gen,
-            cfg.train.selfplay_plies_per_iter)
-        traj = actor.resolve_chunk(cfg.env, carry.pending, lookahead=recs)
-        wrote = carry.has_pending
-        if wrote:
-            replay_buffer.write(buf, traj.board, traj.to_play,
-                                traj.last_move, traj.pi, traj.z,
-                                traj.z_valid, traj.pi_valid)
-        global_size = (buf.size if group is None else int(
-            distributed.all_reduce_sum([buf.size], group, dev)[0]))
-        do_update = global_size >= cfg.replay.min_fill
-        if do_update:
-            aux = learner_phase(cfg, ts, buf, gen, group)
-        else:
-            aux = dict.fromkeys(AUX_KEYS, 0.0)
-        aux["z_valid_frac"] = (traj.z_valid.float().mean() if wrote
-                               else 0.0)
-        # one device read for every tensor-valued metric
-        names = [k for k, v in aux.items() if isinstance(v, torch.Tensor)]
-        if names:
-            values = torch.stack([aux[k].float() for k in names]).tolist()
-            aux.update(zip(names, values))
-        # the chunk's metrics: summed over the ranks, two then averaged
-        chunk = dict(games_finished=stats.games_finished,
-                     env_steps=stats.env_steps,
-                     black_wins=stats.black_wins,
-                     white_wins=stats.white_wins, draws=stats.draws,
-                     mean_root_value=stats.mean_root_value,
-                     z_valid_frac=aux.pop("z_valid_frac"))
-        if group is not None:
-            world = dist.get_world_size(group)
-            chunk = dict(zip(chunk, distributed.all_reduce_sum(
-                list(chunk.values()), group, dev)))
-            chunk["mean_root_value"] /= world
-            chunk["z_valid_frac"] /= world
-        metrics = dict(
-            aux, **{k: float(v) for k, v in chunk.items()},
-            buffer_size=float(global_size),
-            updated=float(do_update),
-            step=float(ts.step))
-        if torch.is_anomaly_enabled():
-            bad = [k for k, v in metrics.items() if not math.isfinite(v)]
-            if bad:
-                raise FloatingPointError(f"non-finite iteration metric "
-                                         f"{bad[0]!r} (all: {bad})")
-        carry.env_state, carry.pending = env_state, recs
-        carry.has_pending = True
-        return carry, metrics
+        with trace.span("iteration"):
+            ts, buf, gen = carry.train_state, carry.buffer, carry.generator
+            dev = buf.board.device
+            evaluate = net_evaluator(cfg.env, cfg.net, ts.net)
+            with trace.span("selfplay"):
+                env_state, recs, stats = actor.selfplay_record(
+                    cfg.env, cfg.mcts, evaluate, carry.env_state, gen,
+                    cfg.train.selfplay_plies_per_iter)
+            with trace.span("resolve_chunk"):
+                traj = actor.resolve_chunk(cfg.env, carry.pending,
+                                           lookahead=recs)
+            wrote = carry.has_pending
+            if wrote:
+                with trace.span("ring_write"):
+                    replay_buffer.write(buf, traj.board, traj.to_play,
+                                        traj.last_move, traj.pi, traj.z,
+                                        traj.z_valid, traj.pi_valid)
+            global_size = (buf.size if group is None else int(
+                distributed.all_reduce_sum([buf.size], group, dev)[0]))
+            do_update = global_size >= cfg.replay.min_fill
+            if do_update:
+                aux = learner_phase(cfg, ts, buf, gen, group)
+            else:
+                aux = dict.fromkeys(AUX_KEYS, 0.0)
+            aux["z_valid_frac"] = (traj.z_valid.float().mean() if wrote
+                                   else 0.0)
+            # one device read for every tensor-valued metric
+            names = [k for k, v in aux.items() if isinstance(v, torch.Tensor)]
+            if names:
+                values = trace.read_list("iteration_metrics", torch.stack(
+                    [aux[k].float() for k in names]))
+                aux.update(zip(names, values))
+            # the chunk's metrics: summed over the ranks, two then averaged
+            chunk = dict(games_finished=stats.games_finished,
+                         env_steps=stats.env_steps,
+                         black_wins=stats.black_wins,
+                         white_wins=stats.white_wins, draws=stats.draws,
+                         mean_root_value=stats.mean_root_value,
+                         z_valid_frac=aux.pop("z_valid_frac"))
+            if group is not None:
+                world = dist.get_world_size(group)
+                chunk = dict(zip(chunk, distributed.all_reduce_sum(
+                    list(chunk.values()), group, dev)))
+                chunk["mean_root_value"] /= world
+                chunk["z_valid_frac"] /= world
+            metrics = dict(
+                aux, **{k: float(v) for k, v in chunk.items()},
+                buffer_size=float(global_size),
+                updated=float(do_update),
+                step=float(ts.step))
+            if torch.is_anomaly_enabled():
+                bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+                if bad:
+                    raise FloatingPointError(f"non-finite iteration metric "
+                                             f"{bad[0]!r} (all: {bad})")
+            carry.env_state, carry.pending = env_state, recs
+            carry.has_pending = True
+            return carry, metrics
 
     return iteration

@@ -11,6 +11,10 @@ ply, as in the JAX package. With the Gumbel root (``root_selection=
 "gumbel"``, ``mcts/gumbel.py``) every search samples Gumbel noise, cheap
 PCR plies too; the move is the halving winner and π is the improved
 policy π', with no temperature and no forced-visit pruning.
+
+Spans (``utils/trace.py``): ``ply`` (a lockstep ply) / the search's
+``search``, and ``env_step`` (the real move); sync sites ``pcr_coin`` and
+``selfplay_stats`` (the chunk's stats).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
 from alphafive_tpu_torch.mcts import gumbel, search
+from alphafive_tpu_torch.utils import trace
 
 
 def prune_forced_visits(visits: torch.Tensor, priors: torch.Tensor,
@@ -117,49 +122,56 @@ def selfplay_record(
 
     recs = []
     for _ in range(num_plies):
-        full = True
-        if use_pcr:
-            # one coin per lockstep ply; only full searches carry noise
-            coin = torch.rand((), generator=generator, device=dev)
-            full = bool(coin < mcts_cfg.full_sim_fraction)
-        sims = num_simulations if full else small
-        if use_gumbel:
-            # Gumbel noise is the exploration, on cheap plies too
-            res = gumbel.run_gumbel_mcts(env_cfg, mcts_cfg, evaluate, state,
-                                         generator, num_simulations=sims,
-                                         add_noise=True)
-            pi_target, action = res.pi_target, res.action
-        else:
-            res = search.run_mcts(env_cfg, mcts_cfg, evaluate, state,
-                                  generator, add_noise=full,
-                                  num_simulations=sims)
-            target = prune_forced_visits(res.visits, res.priors,
-                                         float(mcts_cfg.forced_playouts_k))
-            pi_target = target / target.sum(-1, keepdim=True).clamp(min=1.0)
-            greedy = state.move_count >= mcts_cfg.temperature_moves
-            pi_act = search.pi_from_visits(
-                res.visits, torch.ones(e, device=dev), greedy)
-            action = search.sample_actions(generator, pi_act)
-        if observe is not None:
-            observe(state, res, action)
-        nxt = vector.step(env_cfg, state, action)
-        recs.append((state.board, state.to_play, state.last_move, pi_target,
-                     nxt.done, nxt.winner, res.root_value,
-                     torch.full((e,), full, dtype=torch.bool, device=dev)))
-        state = vector.reset_where(env_cfg, nxt, nxt.done)
+        with trace.span("ply"):
+            full = True
+            if use_pcr:
+                # one coin per lockstep ply; only full searches carry noise
+                coin = torch.rand((), generator=generator, device=dev)
+                full = trace.read_bool("pcr_coin",
+                                       coin < mcts_cfg.full_sim_fraction)
+            sims = num_simulations if full else small
+            if use_gumbel:
+                # Gumbel noise is the exploration, on cheap plies too
+                res = gumbel.run_gumbel_mcts(env_cfg, mcts_cfg, evaluate,
+                                             state, generator,
+                                             num_simulations=sims,
+                                             add_noise=True)
+                pi_target, action = res.pi_target, res.action
+            else:
+                res = search.run_mcts(env_cfg, mcts_cfg, evaluate, state,
+                                      generator, add_noise=full,
+                                      num_simulations=sims)
+                target = prune_forced_visits(
+                    res.visits, res.priors, float(mcts_cfg.forced_playouts_k))
+                pi_target = target / target.sum(-1, keepdim=True).clamp(
+                    min=1.0)
+                greedy = state.move_count >= mcts_cfg.temperature_moves
+                pi_act = search.pi_from_visits(
+                    res.visits, torch.ones(e, device=dev), greedy)
+                action = search.sample_actions(generator, pi_act)
+            if observe is not None:
+                observe(state, res, action)
+            with trace.span("env_step"):
+                nxt = vector.step(env_cfg, state, action)
+                recs.append((state.board, state.to_play, state.last_move,
+                             pi_target, nxt.done, nxt.winner,
+                             res.root_value, torch.full(
+                                 (e,), full, dtype=torch.bool, device=dev)))
+                state = vector.reset_where(env_cfg, nxt, nxt.done)
 
     (boards, to_plays, lasts, pis, dones, winners, root_vals,
      pi_valids) = (torch.stack(x) for x in zip(*recs))
     recordings = Recordings(
         board=boards, to_play=to_plays, last_move=lasts, pi=pis,
         done=dones, winner=winners, pi_valid=pi_valids)
+    site = "selfplay_stats"
     stats = SelfplayStats(
-        games_finished=int(dones.sum()),
+        games_finished=trace.read_int(site, dones.sum()),
         env_steps=num_plies * e,
-        black_wins=int((winners == 1).sum()),
-        white_wins=int((winners == -1).sum()),
-        draws=int(((winners == 0) & dones).sum()),
-        mean_root_value=float(root_vals.mean()),
+        black_wins=trace.read_int(site, (winners == 1).sum()),
+        white_wins=trace.read_int(site, (winners == -1).sum()),
+        draws=trace.read_int(site, ((winners == 0) & dones).sum()),
+        mean_root_value=trace.read_float(site, root_vals.mean()),
     )
     return state, recordings, stats
 

@@ -34,6 +34,7 @@ import torch
 
 from alphafive_tpu_torch.config import EnvConfig, NetConfig, TrainConfig
 from alphafive_tpu_torch.models.resnet import PolicyValueNet, numpy_tree
+from alphafive_tpu_torch.utils import trace
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 CLIP_NORM = 1.0
@@ -185,7 +186,8 @@ def check_finite(named) -> None:
     tensor) pairs `named` that holds a NaN or an infinity (one device
     read for all of them)."""
     named = list(named)
-    ok = torch.stack([torch.isfinite(t).all() for _, t in named]).tolist()
+    ok = trace.read_list("check_finite", torch.stack(
+        [torch.isfinite(t).all() for _, t in named]))
     if not all(ok):
         raise FloatingPointError(f"non-finite {named[ok.index(False)][0]}")
 

@@ -60,6 +60,7 @@ from alphafive_tpu_torch.train import checkpoint as ckpt
 from alphafive_tpu_torch.train.evaluate import evaluate_vs
 from alphafive_tpu_torch.utils.elo import (ANCHOR_STEP_ELO, LadderState,
                                            performance_elo, update_ladder)
+from alphafive_tpu_torch.utils import trace
 from alphafive_tpu_torch.utils.logging import MetricsLogger
 
 # generator tags: JAX's fold_in constants for the net-vs-net match and the
@@ -82,7 +83,9 @@ def train(cfg: RunConfig, workdir: Optional[str] = None,
     world takes the place of ``mesh.data`` (as in JAX's multi-process
     loop); without one, ``mesh.data`` > 1 raises with the launch command.
     profile_iters > 0 captures a ``torch.profiler`` trace of iterations
-    [start + 2, start + 2 + profile_iters) into ``<workdir>/profile``.
+    [start + 2, start + 2 + profile_iters) into ``<workdir>/profile``,
+    with the program's spans on (``af.`` ranges in the trace, and a
+    ``trace`` record of their times and the counters in the metrics).
     init_from warm-starts a fresh run's net from an exported model through
     function-preserving surgery (``models/surgery.py``); a resumed
     checkpoint takes precedence (the warm start happened in that run)."""
@@ -311,18 +314,27 @@ def run_eval(cfg: RunConfig, carry, ladder: LadderState, it: int,
 
 
 def _start_profile(device: torch.device):
+    """A ``torch.profiler`` run with the program's spans on: the trace
+    carries them as ``af.<span>`` ranges."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.start()
+    trace.reset()
+    trace.enable()
     return prof
 
 
 def _stop_profile(prof, workdir: str, log: MetricsLogger) -> None:
+    """Export the trace to ``<workdir>/profile/trace.json`` and log the
+    spans and counters of the profiled iterations as a ``trace``
+    record."""
+    trace.disable()
     prof.stop()
     out = f"{workdir}/profile"
     os.makedirs(out, exist_ok=True)
     prof.export_chrome_trace(f"{out}/trace.json")
     log.log({"kind": "profile", "dir": out})
+    log.log({"kind": "trace", **trace.snapshot()})

@@ -120,6 +120,7 @@ from alphafive_tpu_torch.benchmarks import select_profile  # noqa: E402
 from alphafive_tpu_torch.benchmarks import timing  # noqa: E402
 from alphafive_tpu_torch.ops import _build, resblock as rb  # noqa: E402
 from alphafive_tpu_torch.ops import select as sel  # noqa: E402
+from alphafive_tpu_torch.utils import trace  # noqa: E402
 
 # kernel vs plain: (batch, board, channels, dtype, the variant that must
 # run it); the first two are chip_15x15 self-play's pass and root forwards,
@@ -427,12 +428,12 @@ def phase_kernel_vs_plain():
         x = rnd(b, s, s, c).relu().to(dt)
         w1, w2 = ((rnd(9, c, c) * scale).to(dt) for _ in range(2))
         b1, b2 = (0.1 * rnd(c) for _ in range(2))
-        rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+        trace.reset()
         got = rb.fused_resblock(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
-        if rb.variant_launches[kind] != 1:
+        if program_counts()["variant_launches"][kind] != 1:
             raise AssertionError(f"{b}x{s}x{s}x{c} {dt}: want {kind}, ran "
-                                 f"{rb.variant_launches}")
+                                 f"{program_counts()['variant_launches']}")
         ref = rb.fused_resblock_reference(x, w1, b1, w2, b2)
         err = (got.float() - ref.float()).abs()
         atol, rtol = TOL[dt]
@@ -597,7 +598,6 @@ def selfplay_run(cfg, params, stats, plies: int, repeats: int) -> dict:
     and the stats scatters are set to 0 just before and read just after."""
     from alphafive_tpu_torch.benchmarks import selfplay_bench
     from alphafive_tpu_torch.env import vector
-    from alphafive_tpu_torch.mcts import search_capped
     sims = cfg.mcts.num_simulations
     bad = torch.zeros((), dtype=torch.int64, device="cuda")
     rec, last = [], []
@@ -610,20 +610,18 @@ def selfplay_run(cfg, params, stats, plies: int, repeats: int) -> dict:
                     res.root_value.clone()))
         last[:] = [state, action]
 
-    rb.resblock_launches = rb.pack_launches = 0
-    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
-    search_capped.backup_scatters = 0
+    trace.reset()
     out, traj = selfplay_bench.run(
         cfg, plies=plies, warmup=0, repeats=repeats, device="cuda",
         params=params, batch_stats=stats, observe=observe,
         return_trajectory=True)
-    launches, scatters = rb.resblock_launches, search_capped.backup_scatters
-    packs = rb.pack_launches
+    c = program_counts()
     pi_sum = traj.pi.sum(-1)
     return dict(out=out, traj=traj, rec=rec, plies=len(rec),
-                final=vector.step(cfg.env, *last), launches=launches,
-                variants=dict(rb.variant_launches), packs=packs,
-                scatters=scatters,
+                final=vector.step(cfg.env, *last),
+                launches=c["resblock_launches"],
+                variants=c["variant_launches"], packs=c["pack_launches"],
+                scatters=c["backup_scatters"],
                 failed_checks=bad.item(),
                 pi_ok=bool(torch.isfinite(traj.pi).all()
                            and ((pi_sum - 1).abs() < 1e-5).all()))
@@ -882,14 +880,13 @@ def phase_selfplay_lowsim(params, stats, saved_cfg, card: str):
                  + ((pi != 0) & (state.board != 0)).sum())
         plies[0] += 1
 
-    rb.resblock_launches = 0
-    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    trace.reset()
     out, traj = selfplay_bench.run(
         cfg, plies=LOWSIM_PLIES, warmup=0, repeats=LOWSIM_REPEATS,
         device="cuda", params=params, batch_stats=stats, observe=observe,
         return_trajectory=True)
-    launches = rb.resblock_launches
-    variants = dict(rb.variant_launches)
+    launches = program_counts()["resblock_launches"]
+    variants = program_counts()["variant_launches"]
     expected = cfg.net.blocks * LOWSIM_FORWARDS * plies[0]
     ok = bool(bad.item() == 0 and launches == expected
               and variants["resident"] == launches)
@@ -1205,10 +1202,10 @@ def phase_search_packed(card: str):
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
     packed_search("15x15", 16, seed=20)           # warm-up
-    sel.select_launches = 0
+    trace.reset()
     res_k, _, t_k, (cfg, evaluate, st, mcts) = packed_search("15x15", 16,
                                                              seed=20)
-    launches = sel.select_launches
+    launches = program_counts()["select_launches"]
     res_p, _, t_p, _ = packed_search("15x15", 16, seed=20,
                                      select=sel.select_batch_reference)
     torch.cuda.synchronize()
@@ -1259,8 +1256,7 @@ def phase_eval(card: str):
 
     ev_mod.play_games = recording
     buf = io.StringIO()
-    sel.select_launches = 0
-    rb.resblock_launches = 0
+    trace.reset()
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
@@ -1269,7 +1265,7 @@ def phase_eval(card: str):
     finally:
         ev_mod.play_games = play_games
     seconds = time.perf_counter() - t0
-    launches = sel.select_launches
+    launches = program_counts()["select_launches"]
     result = json.loads(buf.getvalue().strip().splitlines()[-1])
     plies, net_searches, legal = [], 0, True
     for st in finals:   # one game each: the net black, then white
@@ -1286,7 +1282,8 @@ def phase_eval(card: str):
                plies=plies, net_searches=net_searches,
                select_launches=launches,
                expected_launches=SIMS * net_searches,
-               resblock_launches=rb.resblock_launches, all_moves_legal=legal,
+               resblock_launches=program_counts()["resblock_launches"],
+               all_moves_legal=legal,
                nvidia_smi=nvidia_smi(), card=card)
     ok = (rc == 0 and len(finals) == 2 and legal
           and result["games"] == 2
@@ -1447,15 +1444,14 @@ def phase_iteration_lowsim(params, stats, saved_cfg, card: str):
                  tuple(change(a, b) for a, b in zip(now, seen[-1]["weights"])))
         seen.append(dict(metrics=metrics, seconds=seconds, weights=now,
                          moved=moved, carry=carry,
-                         launches=rb.resblock_launches))
+                         launches=program_counts()["resblock_launches"]))
 
-    rb.resblock_launches = 0
-    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    trace.reset()
     out = selfplay_bench.run_iteration(
         cfg, warmup=ITERATION_WARMUP, repeats=ITERATION_REPEATS,
         device="cuda", params=params, batch_stats=stats, observe=observe)
-    launches = rb.resblock_launches
-    variants = dict(rb.variant_launches)
+    launches = program_counts()["resblock_launches"]
+    variants = program_counts()["variant_launches"]
     iters = len(seen)
     per_ply = cfg.net.blocks * LOWSIM_FORWARDS
     expected = per_ply * tc.selfplay_plies_per_iter * iters
@@ -1699,8 +1695,7 @@ def phase_train_loop(workdir: str, card: str):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    rb.resblock_launches = 0
-    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    trace.reset()
     t0 = time.perf_counter()
     with patched((loop, "train", recording_train),
                  (ckpt, "save", timer(ckpt.save, saves)),
@@ -1710,7 +1705,8 @@ def phase_train_loop(workdir: str, card: str):
         rc = cli.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, variants = rb.resblock_launches, dict(rb.variant_launches)
+    c = program_counts()
+    launches, variants = c["resblock_launches"], c["variant_launches"]
     peak = torch.cuda.max_memory_allocated() - base
     carry = returned[-1][0]
     recs = records(workdir)
@@ -1810,13 +1806,13 @@ def phase_train_resume(run: dict, card: str):
     fails = [("restore", step, diffs)] if diffs or step != 4 else []
     before = len(records(workdir))
     argv = [*TRAIN_ARGV, "--workdir", workdir, "--iters", "6", "--resume"]
-    rb.resblock_launches = 0
-    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    trace.reset()
     t0 = time.perf_counter()
     rc = cli.main(argv)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches, variants = rb.resblock_launches, dict(rb.variant_launches)
+    c = program_counts()
+    launches, variants = c["resblock_launches"], c["variant_launches"]
     recs = records(workdir)[before:]
     seq = [(r["kind"], r.get("iter")) for r in recs]
     if rc != 0 or seq != [("resume", 4), ("iter", 4), ("iter", 5),
@@ -1974,8 +1970,7 @@ def two_rank_worker(rank: int, port: int, argv: list, out: str) -> None:
         batches.add((x.shape[0], x.shape[1], x.shape[3], str(x.dtype)))
         return fused(x, *args)
 
-    rb.resblock_launches = 0
-    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+    trace.reset()
     with patched((loop, "train", recording_train),
                  (actor, "selfplay_record", recording_selfplay),
                  (parallel, "make_train_iteration", timed_make),
@@ -1988,8 +1983,9 @@ def two_rank_worker(rank: int, port: int, argv: list, out: str) -> None:
                        "--process-id", str(rank)])
     carry = returned[-1][0]
     with open(f"{out}.rank{rank}.json", "w") as f:
-        json.dump(dict(rank=rank, rc=rc, launches=rb.resblock_launches,
-                       variants=dict(rb.variant_launches),
+        c = program_counts()
+        json.dump(dict(rank=rank, rc=rc, launches=c["resblock_launches"],
+                       variants=c["variant_launches"],
                        local_env_steps=steps, iter_seconds=iter_s,
                        learner_seconds=learner_s,
                        batches=sorted(batches),
@@ -2158,8 +2154,7 @@ def phase_train_nccl_one_rank(card: str):
                                    backend="nccl", device="cuda")
             backend = dist.get_backend()
         log = Records()
-        rb.resblock_launches = 0
-        rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
+        trace.reset()
         t0 = time.perf_counter()
         try:
             with patched((dist, "all_reduce", counting)):
@@ -2172,8 +2167,8 @@ def phase_train_nccl_one_rank(card: str):
             carry=carry, backend=backend, seconds=time.perf_counter() - t0,
             iters=[r for r in log.records if r["kind"] == "iter"],
             all_reduces=len(reduces), all_reduce_elements=sum(reduces),
-            launches=rb.resblock_launches,
-            variants=dict(rb.variant_launches))
+            launches=program_counts()["resblock_launches"],
+            variants=program_counts()["variant_launches"])
     a, b = runs["nccl"], runs["no_group"]
     fails = []
     if not (a["backend"] == "nccl" and a["all_reduces"] > 0
@@ -2259,7 +2254,7 @@ def phase_small_batch_play(card: str) -> dict:
         evaluate = net_evaluator(cfg.env, net_cfg, params, stats, "cuda")
         gen = torch.Generator(device="cuda").manual_seed(0)
         st = vector.init(cfg.env, 1, "cuda")
-        moves, fails, total = [], [], dict.fromkeys(rb.variant_launches, 0)
+        moves, fails, total = [], [], dict.fromkeys(rb.VARIANTS.values(), 0)
         for m in range(PLAY_MOVES):
             res, seconds, counts = general_counts(lambda: run_mcts(
                 cfg.env, cfg.mcts, evaluate, st, gen,
@@ -2305,10 +2300,21 @@ def phase_small_batch_play(card: str) -> dict:
     return launches
 
 
+def program_counts() -> dict:
+    """The program's launch counters (``utils/trace.py``) since the last
+    ``trace.reset()``, the resblock's launches also by variant."""
+    c = trace.snapshot()["counters"]
+    out = {k: c.get(k, 0) for k in ("resblock_launches", "pack_launches",
+                                    "backup_scatters", "select_launches")}
+    out["variant_launches"] = {v: c.get("variant_launches." + v, 0)
+                               for v in rb.VARIANTS.values()}
+    return out
+
+
 def dispatched(launched: list) -> dict:
     """The launches by variant that `rb.variant` picks for each recorded
     (batch, h, w, c, dtype) launch."""
-    want = dict.fromkeys(rb.variant_launches, 0)
+    want = dict.fromkeys(rb.VARIANTS.values(), 0)
     for b, h, w, c, dt in launched:
         want[rb.variant(dt, h, w, c, b)] += 1
     return want
@@ -2335,20 +2341,19 @@ def general_counts(fn):
         launched.append((*x.shape, x.dtype))
         return fused(x, *args)
 
-    rb.resblock_launches = 0
-    rb.variant_launches.update(dict.fromkeys(rb.variant_launches, 0))
-    sel.select_launches = 0
+    trace.reset()
     t0 = time.perf_counter()
     with patched((rb, "fused_resblock", recording)):
         out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    c = program_counts()
     return out, seconds, dict(
-        resblock_launches=rb.resblock_launches,
-        variant_launches=dict(rb.variant_launches),
+        resblock_launches=c["resblock_launches"],
+        variant_launches=c["variant_launches"],
         dispatched=dispatched(launched),
         resblock_batches=sorted({b for b, *_ in launched}),
-        resblock_shapes=sorted(shapes), select_launches=sel.select_launches,
+        resblock_shapes=sorted(shapes), select_launches=c["select_launches"],
         uncovered=uncovered(launched))
 
 

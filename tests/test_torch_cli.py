@@ -16,8 +16,8 @@ from alphafive_tpu.config import get_preset as j_get_preset
 from alphafive_tpu.train import checkpoint as jckpt
 from alphafive_tpu_torch import cli, parallel
 from alphafive_tpu_torch.config import get_preset
-from alphafive_tpu_torch.ops import select as ps
 from alphafive_tpu_torch.train import checkpoint as ckpt
+from alphafive_tpu_torch.utils import trace
 from alphafive_tpu_torch.utils.elo import LadderState
 
 torch.set_num_threads(1)
@@ -36,7 +36,8 @@ def test_eval_through_the_packed_search(capsys):
     assert rc == 0 and set(out) == JAX_EVAL_KEYS
     assert out["games"] == out["wins"] + out["losses"] + out["draws"] == 2
     assert out["anchor_rollouts"] == 8
-    assert ps.select_launches == 0  # the plain descent on CPU tensors
+    # the plain descent on CPU tensors
+    assert trace.snapshot()["counters"].get("select_launches", 0) == 0
 
 
 def test_play_pure_opponent_scripted(monkeypatch, capsys):

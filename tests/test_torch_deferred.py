@@ -28,9 +28,10 @@ from alphafive_tpu.train import actor as jactor
 from alphafive_tpu_torch import config
 from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
 from alphafive_tpu_torch.env import vector
-from alphafive_tpu_torch.mcts import gumbel, search_capped
+from alphafive_tpu_torch.mcts import gumbel
 from alphafive_tpu_torch.mcts.search_capped import _stages, run_mcts_capped
 from alphafive_tpu_torch.train import actor
+from alphafive_tpu_torch.utils import trace
 from tests.test_gumbel import _gumbel_table, jax_eval
 from tests.test_mcts import to_env_state
 from test_torch_gumbel import fixture, torch_eval, torch_state
@@ -60,9 +61,9 @@ def passes_alone(passes, depth=24):
 
 
 def search_counting(env, cfg, ev, st, **kw):
-    search_capped.backup_scatters = 0
+    trace.reset()
     res = run_mcts_capped(env, cfg, ev, st, **kw)
-    return res, search_capped.backup_scatters
+    return res, trace.snapshot()["counters"].get("backup_scatters", 0)
 
 
 @pytest.mark.parametrize("size,sims,lb,cap", CASES)
@@ -178,7 +179,7 @@ def test_gumbel_ignores_the_interval(branch_cap):
         JEnvConfig(board_size=size, n_in_row=n_in_row), JMCTSConfig(**kw),
         jax_eval(size)))(to_env_state(games), jax.random.key(0),
                          gumbel=jnp.asarray(gtab))
-    search_capped.backup_scatters = 0
+    trace.reset()
     rt = gumbel.run_gumbel_mcts(
         EnvConfig(board_size=size, n_in_row=n_in_row), MCTSConfig(**kw),
         torch_eval(size), torch_state(games), gumbel=torch.from_numpy(gtab))
@@ -190,7 +191,7 @@ def test_gumbel_ignores_the_interval(branch_cap):
                                np.asarray(rj.pi_target), atol=1e-5)
     passes = sum(p for _, p in gumbel.build_schedule(sims, m))
     if branch_cap is not None:
-        assert search_capped.backup_scatters == passes
+        assert trace.snapshot()["counters"].get("backup_scatters", 0) == passes
 
 
 @pytest.mark.parametrize("root", ["puct", "gumbel"])

@@ -24,10 +24,9 @@ from alphafive_tpu_torch.config import EnvConfig, MCTSConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.models.evaluator import (rollout_evaluator,
                                                   uniform_evaluator)
-from alphafive_tpu_torch.ops import select as ps
 from alphafive_tpu_torch.train.evaluate import (evaluate_vs, play_games,
                                                 random_openings)
-from alphafive_tpu_torch.utils import elo
+from alphafive_tpu_torch.utils import elo, trace
 from test_torch_search import (frozen_weights, jax_frozen_evaluator,
                                jax_state, torch_frozen_evaluator)
 
@@ -59,7 +58,7 @@ def test_play_games_matches_jax(size, sims_b, sims_w, lb_w, packed_black):
                     mcts_black=MCTSConfig(**kw_b),
                     mcts_white=MCTSConfig(**kw_w), init_state=st,
                     device="cpu")
-    assert ps.select_launches == 0
+    assert trace.snapshot()["counters"].get("select_launches", 0) == 0
     for f in dataclasses.fields(ft):
         np.testing.assert_array_equal(getattr(ft, f.name).numpy(),
                                       np.asarray(getattr(fj, f.name)),

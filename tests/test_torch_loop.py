@@ -18,6 +18,7 @@ from alphafive_tpu_torch.config import EnvConfig, NetConfig, get_preset
 from alphafive_tpu_torch.models.resnet import init_params
 from alphafive_tpu_torch.train import checkpoint as ckpt
 from alphafive_tpu_torch.train import loop
+from alphafive_tpu_torch.utils import trace
 from alphafive_tpu_torch.utils.elo import LadderState, update_ladder
 from alphafive_tpu_torch.utils.logging import MetricsLogger
 
@@ -238,3 +239,14 @@ def test_profile_iters_writes_a_trace(tmp_path):
     assert os.path.getsize(f"{wd}/profile/trace.json") > 0
     kinds = [(r["kind"], r.get("iter")) for r in records(wd)]
     assert kinds.index(("profile", None)) == kinds.index(("iter", 2)) + 1
+    # the program's spans ran for the profiled iteration: af. ranges in
+    # the trace, their times and the counters in a trace record
+    with open(f"{wd}/profile/trace.json") as f:
+        names = {ev.get("name") for ev in json.load(f)["traceEvents"]}
+    assert {"af.iteration", "af.selfplay", "af.ply", "af.search",
+            "af.descent", "af.learner_phase", "af.train_step"} <= names
+    (rec,) = [r for r in records(wd) if r["kind"] == "trace"]
+    assert kinds.index(("trace", None)) == kinds.index(("profile", None)) + 1
+    assert rec["spans"]["iteration"]["calls"] == 1
+    assert rec["counters"]["syncs.iteration_metrics"] == 1
+    assert trace.span("x") is trace.span("y")   # off again after it

@@ -13,6 +13,7 @@ import torch
 
 from alphafive_tpu.ops import pallas_resblock as prb
 from alphafive_tpu_torch.ops import resblock as rb
+from alphafive_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -33,7 +34,8 @@ def test_reference_matches_pallas_f32(size, c):
     want = np.asarray(prb.fused_resblock(*map(jnp.asarray, args),
                                          interpret=True))
     got = rb.fused_resblock(*map(torch.from_numpy, args))
-    assert rb.resblock_launches == 0  # CPU tensors never launch the kernel
+    # CPU tensors never launch the kernel
+    assert trace.snapshot()["counters"].get("resblock_launches", 0) == 0
     # tests/test_pallas.py's tolerance for the same kernel
     np.testing.assert_allclose(got.numpy(), want, atol=2e-4, rtol=2e-4)
 
@@ -183,7 +185,12 @@ def test_variant_codes_match_source():
     assert codes == names
     assert rb.VARIANTS == {0: "streaming", 1: "resident", 2: "tiled",
                            4: "general", 5: "split"}
-    assert set(rb.variant_launches) == set(rb.VARIANTS.values())
+    # launches are counted as variant_launches.<the library's variant>
+    picked = {rb.variant(dt, s, s, c, b) for dt in (torch.bfloat16,
+                                                    torch.float32)
+              for s in (5, 15, 19) for c in (16, 64, 128)
+              for b in (1, 8, 4096)}
+    assert picked <= set(rb.VARIANTS.values())
 
 
 def test_check_rejects_misaligned():
@@ -284,14 +291,16 @@ def test_streaming_smem_matches_source():
 def test_pack_wrapper_refuses_and_counts_no_cpu_launch():
     """On CPU tensors neither the block nor the pack counts a launch; on
     other devices the pack raises, as the block does."""
-    rb.pack_launches = 0
+    trace.reset()
     x = torch.zeros(2, 19, 19, 64, dtype=torch.bfloat16)
     w = torch.zeros(9, 64, 64, dtype=torch.bfloat16)
     b = torch.zeros(64)
     assert rb.variant(x.dtype, 19, 19, 64) == "streaming"
     rb.fused_resblock(x, w, b, w, b)
     rb.pack_streaming_taps(w, w)
-    assert rb.pack_launches == 0
+    counters = trace.snapshot()["counters"]
+    assert "pack_launches" not in counters
+    assert "resblock_launches" not in counters
     m = torch.zeros(9, 64, 64, dtype=torch.bfloat16, device="meta")
     with pytest.raises(RuntimeError):
         rb.pack_streaming_taps(m, m)

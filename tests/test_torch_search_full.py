@@ -28,6 +28,7 @@ from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.mcts import search
 from alphafive_tpu_torch.mcts.search_packed import run_mcts_packed
 from alphafive_tpu_torch.ops import select as ps
+from alphafive_tpu_torch.utils import trace
 from test_torch_search import (frozen_weights, jax_frozen_evaluator,
                                jax_state, torch_frozen_evaluator)
 
@@ -172,7 +173,7 @@ def test_packed_matches_jax(size, sims, plies, max_depth, noise):
 
     play_and_compare(run_j, run_t, env_t, vector.init(env_t, 4, "cpu"), plies,
                      sims)
-    assert ps.select_launches == 0
+    assert trace.snapshot()["counters"].get("select_launches", 0) == 0
 
 
 def test_packed_equals_full_width_in_f32():

@@ -20,6 +20,7 @@ import torch
 
 from alphafive_tpu.ops import pallas_select as jps
 from alphafive_tpu_torch.ops import select as ps
+from alphafive_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -216,7 +217,8 @@ def assert_same(packed, a, d, c_puct, forced_k):
     want = [np.asarray(x) for x in jps.select_batch(
         jnp.asarray(packed), a, d, c_puct, forced_k, interpret=True)]
     got = ps.select_batch(torch.from_numpy(packed), a, d, c_puct, forced_k)
-    assert ps.select_launches == 0  # CPU tensors never launch the kernel
+    # CPU tensors never launch the kernel
+    assert trace.snapshot()["counters"].get("select_launches", 0) == 0
     emulated = emulate_kernel(packed, a, d, c_puct, forced_k)
     for name, g, w, k in zip(("leaf", "act", "depth", "pn", "pa"), got,
                              want, emulated):
@@ -324,7 +326,7 @@ def test_cpu_calls_check_the_kernel_contract():
     with pytest.raises(ValueError, match="aligned"):
         flat = torch.zeros(packed.numel() + 1)
         ps.select_batch(flat[1:].view(packed.shape), 25, 8, 5.0)
-    assert ps.select_launches == 0
+    assert trace.snapshot()["counters"].get("select_launches", 0) == 0
 
 
 TIE_A_PADS = (128, 256, 384, 1024)

@@ -22,6 +22,7 @@ import torch
 
 from alphafive_tpu.ops import pallas_resblock as prb
 from alphafive_tpu_torch.ops import resblock as rb
+from alphafive_tpu_torch.utils import trace
 from test_torch_net import assert_close, run_both
 from test_torch_resblock import make_inputs
 
@@ -577,7 +578,8 @@ def test_reference_matches_pallas_bf16_batch1(size, c):
     got = rb.fused_resblock(tb(x), tb(w1), torch.from_numpy(b1), tb(w2),
                             torch.from_numpy(b2))
     assert rb.variant(BF16, size, size, c, 1) == "split"
-    assert got.dtype == torch.bfloat16 and rb.resblock_launches == 0
+    assert got.dtype == torch.bfloat16
+    assert trace.snapshot()["counters"].get("resblock_launches", 0) == 0
     np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2,
                                rtol=1.6e-2)
 
