@@ -8,9 +8,21 @@ batched env.step and one batched net forward over the E·lb leaves,
 deduplicated expansion, and one backup scatter. Semantics are the JAX
 package's, step for step; the port differs only in mechanics:
 
-* The tree is updated in place (JAX rebuilds immutable arrays).
+* The tree is updated in place (JAX rebuilds immutable arrays), and one
+  tree a shape is kept and emptied for the next search
+  (``_capped_tree_init``), so its storage stays put.
 * The wavefront ``while_loop`` is a Python loop with one host sync per
-  step (``stopped.all()``).
+  step (``stopped.all()``). The step (``_descent_step``) is a function of
+  device tensors only, its index ``k`` a device scalar. On CUDA it is
+  captured once as a CUDA graph (``_StepGraph``) and replayed each step,
+  so a step costs one graph launch where it cost ~90 PyTorch ops; the
+  deferred fold's passes (``pending``) and every other device run it
+  eagerly. A graph is cached by key: the device, pointer, shape, strides
+  and dtype of every tree tensor the step reads, ``c_puct``,
+  ``forced_k``, the value scale, the depth cap, packed stats, the lanes,
+  the slots and the forced slots' shape; the descent state and the forced
+  slots live in its static buffers. The kept tree keeps the pointers, so
+  a shape's graphs are captured in its first search.
 * Top-C takes a stable descending sort, so ties keep the lower action
   first, as ``lax.top_k`` does; the TPU's ``approx_max_k`` is not used
   (on the CPU, where the parity tests run, it is exact and orders ties the
@@ -42,12 +54,16 @@ Spans (``utils/trace.py``): ``search`` / ``root_forward``, and per pass
 The descent's host reads are the sync sites ``descent_drain`` (a pass's
 first, which waits for the previous pass's queued work) and
 ``descent_step`` (every later one). Counters: ``passes``,
-``wavefront_steps``, ``leaves`` (E·lb a pass) and, on the device while
-spans are on, ``expanded`` (the leaves that expanded a node).
+``wavefront_steps``, ``leaves`` (E·lb a pass), ``descent_graph_captures``
+(step graphs captured), ``descent_graph_replays`` and
+``descent_eager_steps`` (the steps each way, summing to
+``wavefront_steps``) and, on the device while spans are on, ``expanded``
+(the leaves that expanded a node).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional
 
@@ -98,99 +114,222 @@ def _top_c(p_signed: torch.Tensor, c: int, prior_dtype: torch.dtype):
     return vals, idx.to(torch.int16)
 
 
-def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
-                  depth_limit, w_inv_scale, forced_k, num_slots, packed, lb,
-                  forced_slots=None, pending=None):
-    """Wavefront PUCT descent of all ``lb`` lanes of a pass.
+@dataclasses.dataclass
+class _Descent:
+    """A pass's wavefront state, which ``_descent_step`` updates in place:
+    each lane's node, path length, stop flag and chosen slot [E, LB], its
+    packed path entries [E, LB, D] and the step index ``k`` (a device
+    int64 scalar), beside the step's index constants."""
+    eidx: torch.Tensor       # [E, 1]
+    lanes: torch.Tensor      # [LB]
+    slot_ar: torch.Tensor    # [C]
+    tri: torch.Tensor        # [LBi, LBj]: lane i starts before lane j
+    cur: torch.Tensor
+    depth: torch.Tensor
+    stopped: torch.Tensor
+    sel: torch.Tensor
+    ppas: torch.Tensor
+    k: torch.Tensor
+
+    @classmethod
+    def new(cls, e: int, lb: int, d: int, num_slots: int, dev) -> "_Descent":
+        lanes = torch.arange(lb, device=dev)
+        z = lambda *shape: torch.zeros(shape, dtype=torch.long, device=dev)
+        return cls(eidx=torch.arange(e, device=dev)[:, None], lanes=lanes,
+                   slot_ar=torch.arange(num_slots, device=dev),
+                   tri=lanes[:, None] < lanes[None, :],
+                   cur=z(e, lb), depth=z(e, lb),
+                   stopped=torch.zeros((e, lb), dtype=torch.bool, device=dev),
+                   sel=torch.full((e, lb), -1, dtype=torch.long, device=dev),
+                   ppas=z(e, lb, d), k=z())
+
+    def reset(self) -> None:
+        for t in (self.cur, self.depth, self.stopped, self.ppas, self.k):
+            t.zero_()
+        self.sel.fill_(-1)
+
+
+def _descent_step(s: _Descent, stat_a, stat_b, tree_p, tree_child, tree_done,
+                  c_puct, d, w_inv_scale, forced_k, packed, forced_slots=None,
+                  pending=None):
+    """One wavefront step of every lane, in place on `s`, ``k`` included;
+    returns whether every lane has stopped, as a device bool. It reads
+    nothing on the host, so a CUDA graph can replay it (``_StepGraph``).
 
     Lane j starts at step j and every active lane takes one step per
     iteration, so while lane j is active its depth is exactly k - j. Virtual
     visits are computed from the lanes' recorded paths: every node has a
     unique depth, so lane j standing at ``cur`` can only meet another
     lane's path entry at index k - j (see the JAX docstring for the
-    argument). The tree is read-only here. `forced_slots` [E, LB] pins
-    lane j's first step to root slot forced_slots[:, j] (the Gumbel
-    search's halving lanes). `pending` (deferred backup) is the previous
-    pass's unscattered results (ppas_prev [E,LP,D], pw_prev int32
-    [E,LP,D] value units, deps_prev [E,LP]): its visits and value units
-    are folded into the real stats read at the same depth index.
+    argument). The tree is read-only here. Once every lane has stopped a
+    step changes nothing but ``k``."""
+    eidx, lanes, cur, depth, k = s.eidx, s.lanes, s.cur, s.depth, s.k
+    active = (lanes[None, :] <= k) & ~s.stopped                 # [E,LB]
+    revisit = tree_done[eidx, cur] | (depth >= d)
+    p_signed = tree_p[eidx, cur].float()                        # [E,LB,C]
+    legal = p_signed >= 0
+    if packed:
+        row = stat_a[eidx, cur]                                 # [E,LB,C]
+        nf_real = (row & 0xFFFF).float()
+        w_row = (row >> 16).float() * w_inv_scale
+    else:
+        nf_real = stat_a[eidx, cur].float()
+        w_row = stat_b[eidx, cur].float() * w_inv_scale
+    p_row = p_signed.clamp(min=0.0)
+
+    # path entry of lane i at lane j's depth k - j: ent[e,i,j]
+    dsel = (k - lanes).clamp(0, d - 1)                          # [LBj]
+    ent = s.ppas[:, :, dsel]                                    # [E,LBi,LBj]
+    match = (s.tri[None]
+             & (depth[:, :, None] > depth[:, None, :])
+             & ((ent >> 8) == cur[:, None, :]))                 # [E,LBi,LBj]
+    virt = (match[..., None]
+            & ((ent & 255)[..., None] == s.slot_ar)).sum(dim=1).float()
+
+    if pending is not None:
+        pp, pw, pdep = pending
+        entp = pp[:, :, dsel]                                   # [E,LP,LBj]
+        validp = ((dsel[None, None, :] < pdep[:, :, None])
+                  & ((entp >> 8) == cur[:, None, :]))
+        hit = validp[..., None] & ((entp & 255)[..., None] == s.slot_ar)
+        nf_real = nf_real + hit.sum(dim=1).float()              # [E,LBj,C]
+        w_row = w_row + torch.where(
+            hit, pw[:, :, dsel].float()[..., None], 0.0).sum(dim=1) \
+            * w_inv_scale
+
+    nf = nf_real + virt
+    score = _puct_scores_n(nf, w_row, p_row, legal, c_puct)
+    # forced-playout gate on REAL visits only
+    forced = (legal & (depth == 0)[..., None] & (nf_real > 0)
+              & (nf_real * nf_real
+                 < forced_k * p_row * nf_real.sum(dim=-1, keepdim=True)))
+    score = torch.where(forced, float("inf"), score)
+    sl = score.argmax(dim=-1)                                   # [E,LB]
+    if forced_slots is not None:  # Gumbel lane: pin the root slot
+        sl = torch.where(depth == 0, forced_slots, sl)
+    ch = tree_child[eidx, cur, sl].long()
+    stop_now = revisit | (ch < 0)
+    rec = active & ~revisit
+    stop = active & stop_now
+    # each (lane, depth) entry is written at most once
+    s.ppas[:, lanes, dsel] += torch.where(rec, (cur << 8) | sl, 0)
+    s.sel.copy_(torch.where(stop, torch.where(revisit, -1, sl), s.sel))
+    s.cur.copy_(torch.where(active & ~stop_now, ch, cur))
+    depth.add_(rec.long())
+    s.stopped.logical_or_(stop)
+    k.add_(1)
+    return s.stopped.all()
+
+
+class _StepGraph:
+    """One ``_descent_step`` captured as a CUDA graph. Its static buffers
+    are the descent state and the forced slots; the tree is read where it
+    lies, so the cache key holds the tree's pointers (``_step_graph``)."""
+
+    def __init__(self, tree, scalars, num_slots: int, lb: int,
+                 forced_slots):
+        dev = tree[-1].device
+        self.state = _Descent.new(tree[-1].shape[0], lb, scalars[1],
+                                  num_slots, dev)
+        self.forced = None if forced_slots is None else forced_slots.clone()
+        step = lambda: _descent_step(self.state, *tree, *scalars,
+                                     self.forced)
+        with torch.cuda.device(dev):
+            # a warm-up step on a side stream first, as capture requires
+            main, side = torch.cuda.current_stream(), torch.cuda.Stream()
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                step()
+            main.wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.done = step()
+
+    def start(self, forced_slots) -> _Descent:
+        """The static state, reset for a new pass."""
+        self.state.reset()
+        if forced_slots is not None:
+            self.forced.copy_(forced_slots)
+        return self.state
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        return self.done
+
+
+_GRAPHS: "collections.OrderedDict[tuple, _StepGraph]" = \
+    collections.OrderedDict()
+_MAX_GRAPHS = 32   # least recently used out first: evals at other shapes
+
+
+def _step_graph(tree, scalars, num_slots: int, lb: int, forced_slots,
+                pending) -> Optional[_StepGraph]:
+    """The step graph of this descent, captured the first time its key is
+    seen; None where the step runs eagerly (off CUDA, or with `pending`).
+    The key is every tree tensor's device, pointer, shape, strides and
+    dtype, the step's scalars, the lanes, the slots and the forced slots'
+    shape: a tree at a new address gets a new capture, whatever the
+    allocator does."""
+    if not tree[-1].is_cuda or pending is not None:
+        return None
+    key = (scalars, num_slots, lb,
+           None if forced_slots is None else (forced_slots.shape,
+                                              forced_slots.dtype),
+           tuple((t.device, t.data_ptr(), t.shape, t.stride(), t.dtype)
+                 for t in tree))
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        graph = _StepGraph(tree, scalars, num_slots, lb, forced_slots)
+        trace.count("descent_graph_captures")
+        _GRAPHS[key] = graph
+        if len(_GRAPHS) > _MAX_GRAPHS:
+            _GRAPHS.popitem(last=False)
+    else:
+        _GRAPHS.move_to_end(key)
+    return graph
+
+
+def _select_lanes(stat_a, stat_b, tree_p, tree_child, tree_done, c_puct,
+                  depth_limit, w_inv_scale, forced_k, num_slots, packed, lb,
+                  forced_slots=None, pending=None):
+    """Wavefront PUCT descent of all ``lb`` lanes of a pass: one
+    ``_descent_step`` after another until every lane has stopped, read
+    on the host after each step. On CUDA each step is a replay of its
+    ``_StepGraph`` (the deferred fold's passes excepted); elsewhere it
+    runs eagerly. `forced_slots` [E, LB] pins lane j's first step to root
+    slot forced_slots[:, j] (the Gumbel search's halving lanes).
+    `pending` (deferred backup) is the previous pass's unscattered
+    results (ppas_prev [E,LP,D], pw_prev int32 [E,LP,D] value units,
+    deps_prev [E,LP]): its visits and value units are folded into the
+    real stats read at the same depth index.
 
     Returns (lps [E,LB] leaf-parent nodes, slots [E,LB] chosen slot or -1
     for revisits, deps [E,LB] path lengths, ppas [E,LB,D] packed
     (node << 8 | slot) path entries)."""
-    d = depth_limit
-    e = tree_done.shape[0]
-    dev = tree_done.device
-    eidx = torch.arange(e, device=dev)[:, None]                 # [E,1]
-    lanes = torch.arange(lb, device=dev)
-    slot_ar = torch.arange(num_slots, device=dev)
-    tri = lanes[:, None] < lanes[None, :]                       # [LBi,LBj]
-
-    cur = torch.zeros((e, lb), dtype=torch.long, device=dev)
-    depth = torch.zeros((e, lb), dtype=torch.long, device=dev)
-    stopped = torch.zeros((e, lb), dtype=torch.bool, device=dev)
-    sel = torch.full((e, lb), -1, dtype=torch.long, device=dev)
-    ppas = torch.zeros((e, lb, d), dtype=torch.long, device=dev)
-    k = 0
+    tree = (stat_a, stat_b, tree_p, tree_child, tree_done)
+    scalars = (c_puct, depth_limit, w_inv_scale, forced_k, packed)
+    graph = _step_graph(tree, scalars, num_slots, lb, forced_slots, pending)
+    if graph is None:
+        s = _Descent.new(tree_done.shape[0], lb, depth_limit, num_slots,
+                         tree_done.device)
+        step = lambda: _descent_step(s, *tree, *scalars, forced_slots,
+                                     pending)
+    else:
+        s = graph.start(forced_slots)
+        step = graph.replay
+    done, steps = s.stopped.all(), 0
     site = "descent_drain"   # the first read waits for the last pass's work
-    while not trace.read_bool(site, stopped.all()):
+    while not trace.read_bool(site, done):
         site = "descent_step"
-        active = (lanes[None, :] <= k) & ~stopped               # [E,LB]
-        revisit = tree_done[eidx, cur] | (depth >= d)
-        p_signed = tree_p[eidx, cur].float()                    # [E,LB,C]
-        legal = p_signed >= 0
-        if packed:
-            row = stat_a[eidx, cur]                             # [E,LB,C]
-            nf_real = (row & 0xFFFF).float()
-            w_row = (row >> 16).float() * w_inv_scale
-        else:
-            nf_real = stat_a[eidx, cur].float()
-            w_row = stat_b[eidx, cur].float() * w_inv_scale
-        p_row = p_signed.clamp(min=0.0)
-
-        # path entry of lane i at lane j's depth k - j: ent[e,i,j]
-        dsel = (k - lanes).clamp(0, d - 1)                      # [LBj]
-        ent = ppas[:, :, dsel]                                  # [E,LBi,LBj]
-        match = (tri[None]
-                 & (depth[:, :, None] > depth[:, None, :])
-                 & ((ent >> 8) == cur[:, None, :]))             # [E,LBi,LBj]
-        virt = (match[..., None]
-                & ((ent & 255)[..., None] == slot_ar)).sum(dim=1).float()
-
-        if pending is not None:
-            pp, pw, pdep = pending
-            entp = pp[:, :, dsel]                               # [E,LP,LBj]
-            validp = ((dsel[None, None, :] < pdep[:, :, None])
-                      & ((entp >> 8) == cur[:, None, :]))
-            hit = validp[..., None] & ((entp & 255)[..., None] == slot_ar)
-            nf_real = nf_real + hit.sum(dim=1).float()          # [E,LBj,C]
-            w_row = w_row + torch.where(
-                hit, pw[:, :, dsel].float()[..., None], 0.0).sum(dim=1) \
-                * w_inv_scale
-
-        nf = nf_real + virt
-        score = _puct_scores_n(nf, w_row, p_row, legal, c_puct)
-        # forced-playout gate on REAL visits only
-        forced = (legal & (depth == 0)[..., None] & (nf_real > 0)
-                  & (nf_real * nf_real
-                     < forced_k * p_row * nf_real.sum(dim=-1, keepdim=True)))
-        score = torch.where(forced, float("inf"), score)
-        s = score.argmax(dim=-1)                                # [E,LB]
-        if forced_slots is not None:  # Gumbel lane: pin the root slot
-            s = torch.where(depth == 0, forced_slots, s)
-        ch = tree_child[eidx, cur, s].long()
-        stop_now = revisit | (ch < 0)
-        rec = active & ~revisit
-        # each (lane, depth) entry is written at most once
-        ppas[:, lanes, dsel] += torch.where(rec, (cur << 8) | s, 0)
-        depth = depth + rec.long()
-        sel = torch.where(active & stop_now,
-                          torch.where(revisit, -1, s), sel)
-        stopped = stopped | (active & stop_now)
-        cur = torch.where(active & ~stop_now, ch, cur)
-        k += 1
-    trace.count("wavefront_steps", k)
-    return cur, sel, depth, ppas
+        done = step()
+        steps += 1
+    trace.count("wavefront_steps", steps)
+    trace.count("descent_eager_steps" if graph is None
+                else "descent_graph_replays", steps)
+    out = s.cur, s.sel, s.depth, s.ppas
+    # the graph's buffers are the next pass's: the caller gets copies
+    return out if graph is None else tuple(t.clone() for t in out)
 
 
 def _run_pass(env_cfg, evaluate, tree: CappedTree, *, base, d, lb, c,
@@ -307,26 +446,50 @@ def _backup(tree: CappedTree, ppas, deps, leaf_value, *, packed, w_scale,
     return None
 
 
+# each tree field's empty value; w is absent (None) in packed mode
+_TREE_FILL = dict(n=0, w=0, p=-1, child=-1, cand_act=0, node_done=0,
+                  node_winner=0, node_to_play=1, node_last=-1, node_count=0,
+                  node_board=0)
+_TREES: "collections.OrderedDict[tuple, CappedTree]" = \
+    collections.OrderedDict()
+_MAX_TREES = 4   # least recently used out first: evals at other shapes
+
+
 def _capped_tree_init(state: EnvState, nn: int, c: int, packed: bool,
                       prior_dtype) -> CappedTree:
     """An empty [E, nn, C] slot tree on the device of `state`, whose root
-    (node 0) is `state`; the root's slots are the caller's to fill."""
+    (node 0) is `state`; the root's slots are the caller's to fill.
+
+    One tree a shape is kept and emptied in place, so its storage, and
+    with it the descent's step graphs (keyed by the tree's pointers),
+    lasts across searches: a search's tree is valid until the next search
+    of its shape starts."""
     e, a = state.board.shape
-    z = lambda shape, dt, fill=0: torch.full(shape, fill, dtype=dt,
-                                             device=state.board.device)
-    tree = CappedTree(
-        n=z((e, nn, c), torch.int32),
-        w=None if packed else z((e, nn, c), torch.float32),
-        p=z((e, nn, c), prior_dtype, -1.0),
-        child=z((e, nn, c), torch.int32, -1),
-        cand_act=z((e, nn, c), torch.int16),
-        node_done=z((e, nn), torch.bool),
-        node_winner=z((e, nn), torch.int8),
-        node_to_play=z((e, nn), torch.int8, 1),
-        node_last=z((e, nn), torch.int32, -1),
-        node_count=z((e, nn), torch.int32),
-        node_board=z((e, nn, a), torch.int8),
-    )
+    dev = state.board.device
+    key = (dev, e, a, nn, c, packed, prior_dtype)
+    tree = _TREES.pop(key, None)
+    if tree is None:
+        z = lambda shape, dt: torch.empty(shape, dtype=dt, device=dev)
+        tree = CappedTree(
+            n=z((e, nn, c), torch.int32),
+            w=None if packed else z((e, nn, c), torch.float32),
+            p=z((e, nn, c), prior_dtype),
+            child=z((e, nn, c), torch.int32),
+            cand_act=z((e, nn, c), torch.int16),
+            node_done=z((e, nn), torch.bool),
+            node_winner=z((e, nn), torch.int8),
+            node_to_play=z((e, nn), torch.int8),
+            node_last=z((e, nn), torch.int32),
+            node_count=z((e, nn), torch.int32),
+            node_board=z((e, nn, a), torch.int8),
+        )
+        if len(_TREES) >= _MAX_TREES:
+            _TREES.popitem(last=False)
+    _TREES[key] = tree
+    for name, fill in _TREE_FILL.items():
+        t = getattr(tree, name)
+        if t is not None:
+            t.fill_(fill)
     _write_nodes(tree, 0, state)
     return tree
 

@@ -69,6 +69,14 @@ the entry points a user calls:
   kernel's split variant serves (at ``19x19_10b`` every launch), each
   held by a kernel_vs_plain row.
 
+* the capped search's wavefront step as a CUDA graph (``descent_graph``)
+  against the same step run eagerly, over whole searches at
+  ``chip_15x15`` (256 envs), ``renju_19x19`` (512), ``cli play``'s (one
+  env, no noise) and the ``lowsim_15x15`` Gumbel root on a branch-capped
+  tree (2,048 envs): every pass's descent and every result bit-equal,
+  graphs captured in each shape's first search only, every graphed step
+  a replay.
+
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
 JSON line; any failure raises. The last lines are the kernel table, the
@@ -340,6 +348,17 @@ GENERAL_SEARCH_SIMS = 64
 # bundle under its preset: forwards of 1 (the root) and 8 (the leaves)
 PLAY_MOVES, PLAY_SIMS = 4, 400
 PLAY_BUNDLES = [("15x15", "chip_15x15"), ("19x19_10b", "renju_19x19")]
+# the capped descent's step graphs against the eager step: (case, preset,
+# bundle, envs (None: the preset's), noise, overrides); each case searches
+# DESCENT_GRAPH_SEARCHES positions of its own, eager and then graphed
+DESCENT_GRAPH_CASES = [
+    ("chip_15x15", "chip_15x15", "15x15", None, True, []),
+    ("renju_19x19", "renju_19x19", "19x19_10b", None, True, []),
+    ("cli_play", "renju_19x19", "19x19_10b", 1, False, []),
+    ("lowsim_gumbel_capped", "lowsim_15x15", "15x15_lowsim", None, True,
+     ["mcts.branch_cap=225"]),
+]
+DESCENT_GRAPH_SEARCHES = 2
 # cli eval: two games against the rollout anchor at a small budget
 EVAL_ARGV = ["eval", "--preset", "chip_15x15",
              "--set", "mcts.select_impl=pallas",
@@ -2300,6 +2319,108 @@ def phase_small_batch_play(card: str) -> dict:
     return launches
 
 
+def phase_descent_graph(card: str) -> None:
+    """The capped descent's step graphs (``search_capped._StepGraph``)
+    against the eager step, over whole searches of each
+    DESCENT_GRAPH_CASES case with the bundle's net through the kernel:
+    each position searched eagerly (the graph lookup patched out) and then
+    graphed, from the same generator seed. Every pass's `_select_lanes`
+    outputs and the search's results bit-equal; graph captures only in
+    the case's first graphed search; every graphed step a replay. The
+    descent's seconds (synchronised on each side) beside, eager and
+    graphed."""
+    from alphafive_tpu_torch.config import apply_overrides, get_preset
+    from alphafive_tpu_torch.mcts import gumbel, search, search_capped
+    from alphafive_tpu_torch.models.evaluator import net_evaluator
+    from alphafive_tpu_torch.train.checkpoint import load_model
+    select, lookup = search_capped._select_lanes, search_capped._step_graph
+    failed = {}
+    for case, preset, bundle, envs, noise, overrides in DESCENT_GRAPH_CASES:
+        cfg = apply_overrides(get_preset(preset),
+                              ["net.use_pallas=true", *overrides])
+        params, stats, saved = load_model(os.path.join(ROOT, "pretrained",
+                                                       bundle))
+        check_fit(bundle, saved, cfg)
+        evaluate = net_evaluator(cfg.env, cfg.net, params, stats, "cuda")
+        # from empty caches, so the first graphed search captures
+        search_capped._GRAPHS.clear()
+        search_capped._TREES.clear()
+        e = envs or cfg.train.num_envs
+        capped = cfg.mcts.root_selection != "gumbel"
+        outs, clock = [], [0.0]
+
+        def recorded(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = select(*args)
+            torch.cuda.synchronize()
+            clock[0] += time.perf_counter() - t0
+            outs.append(out)
+            return out
+
+        def run(st, seed, graphed):
+            outs.clear()
+            clock[0] = 0.0
+            trace.reset()
+            search_capped._step_graph = lookup if graphed else (
+                lambda *args: None)
+            search_capped._select_lanes = recorded
+            try:
+                gen = torch.Generator(device="cuda").manual_seed(seed)
+                res = (search.run_mcts(cfg.env, cfg.mcts, evaluate, st, gen,
+                                       add_noise=noise) if capped else
+                       gumbel.run_gumbel_mcts(cfg.env, cfg.mcts, evaluate,
+                                              st, gen, add_noise=noise))
+                torch.cuda.synchronize()
+            finally:
+                search_capped._select_lanes = select
+                search_capped._step_graph = lookup
+            c = trace.snapshot()["counters"]
+            return res, list(outs), clock[0], {k: c.get(k, 0) for k in (
+                "passes", "wavefront_steps", "descent_graph_captures",
+                "descent_graph_replays", "descent_eager_steps")}
+
+        searches, fails = [], []
+        for i in range(DESCENT_GRAPH_SEARCHES):
+            st = random_states(cfg.env, e, 30, seed=20 + i)
+            eager, e_outs, e_s, e_c = run(st, 30 + i, graphed=False)
+            graph, g_outs, g_s, g_c = run(st, 30 + i, graphed=True)
+            select_equal = len(e_outs) == len(g_outs) and all(
+                torch.equal(a, b) for ea, ga in zip(e_outs, g_outs)
+                for a, b in zip(ea, ga))
+            results_equal = all(torch.equal(a, b)
+                                for a, b in zip(eager, graph))
+            share = g_c["descent_graph_replays"] / max(
+                1, g_c["wavefront_steps"])
+            searches.append(dict(
+                search=i, passes=g_c["passes"],
+                wavefront_steps=g_c["wavefront_steps"],
+                eager_steps=e_c["descent_eager_steps"],
+                captures=g_c["descent_graph_captures"],
+                replays=g_c["descent_graph_replays"], replay_share=share,
+                eager_descent_s=e_s, graph_descent_s=g_s,
+                select_bit_equal=select_equal,
+                results_bit_equal=results_equal))
+            fails += [(i, k) for k, ok in (
+                ("select_bit_equal", select_equal),
+                ("results_bit_equal", results_equal),
+                ("same_steps", e_c["wavefront_steps"]
+                 == g_c["wavefront_steps"] > 0),
+                ("eager", e_c["descent_eager_steps"]
+                 == e_c["wavefront_steps"]),
+                ("replay_share", share == 1.0),
+                ("captures", (g_c["descent_graph_captures"] > 0) == (i == 0)))
+                if not ok]
+        emit("descent_graph", case=case, preset=cfg.name, envs=e,
+             leaf_batch=cfg.mcts.leaf_batch, branch_cap=cfg.mcts.branch_cap,
+             noise=noise, searches=searches, nvidia_smi=nvidia_smi(),
+             card=card, failed=fails, ok=not fails)
+        if fails:
+            failed[case] = fails
+    if failed:
+        raise AssertionError(f"descent_graph failed its checks: {failed}")
+
+
 def program_counts() -> dict:
     """The program's launch counters (``utils/trace.py``) since the last
     ``trace.reset()``, the resblock's launches also by variant."""
@@ -2526,6 +2647,7 @@ def main() -> int:
     rows = phase_kernel_vs_plain()
     pack_rows = phase_pack_taps_vs_plain()
     play_launches = phase_small_batch_play(card)
+    phase_descent_graph(card)
     params, stats, saved_cfg = phase_bundle("15x15")
     rb_launches = phase_selfplay(params, stats, saved_cfg, card)
     renju_launches, pack_launches = phase_selfplay_renju(card)
