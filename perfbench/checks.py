@@ -45,51 +45,6 @@ _FIELDS = ("board", "to_play", "last_move", "move_count", "done", "winner")
 _RING = ("board", "to_play", "last_move", "pi", "z", "z_valid", "pi_valid")
 
 
-def flax_name(torch_name: str) -> str:
-    """The flax leaf ("layer/param") of a ``PolicyValueNet`` parameter."""
-    parts = torch_name.split(".")
-    if parts[0] == "blocks":
-        j = int(parts[2]) + 1
-        conv, bn, rest = (f"block{parts[1]}/conv{j}", f"block{parts[1]}/bn{j}",
-                          parts[3:])
-    elif parts[0] in ("stem", "policy", "value") and parts[1] in ("conv",
-                                                                  "bn"):
-        conv, bn, rest = f"{parts[0]}_conv", f"{parts[0]}_bn", parts[1:]
-    else:
-        return f"{parts[0]}/{'kernel' if parts[1] == 'weight' else 'bias'}"
-    if rest[0] == "conv":
-        return f"{conv}/kernel"
-    return f"{bn}/{'scale' if rest[1] == 'weight' else 'bias'}"
-
-
-def net_trees(net) -> tuple:
-    """f32 copies of a ``PolicyValueNet``'s weights as flax-layout trees
-    (params, batch_stats): conv kernels HWIO, dense kernels [in, out]."""
-    params: Dict = {}
-    stats: Dict = {}
-
-    def put(tree, path, value):
-        for k in path[:-1]:
-            tree = tree.setdefault(k, {})
-        tree[path[-1]] = value
-
-    with torch.no_grad():
-        for name, v in net.named_parameters():
-            path = flax_name(name).split("/")
-            t = v.detach().float().clone()
-            if path[-1] == "kernel":
-                t = t.permute(2, 3, 1, 0) if t.dim() == 4 else t.t()
-            put(params, path, t.contiguous())
-        for name, v in net.named_buffers():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("running_mean", "running_var"):
-                path = flax_name(name.rsplit(".", 1)[0]
-                                 + ".weight").split("/")[:-1]
-                put(stats, path + [leaf[len("running_"):]],
-                    v.detach().float().clone())
-    return params, stats
-
-
 def _games(state) -> List:
     """The reference's games of recorded env rows (``_FIELDS``)."""
     st = [x.cpu().numpy() for x in state]
@@ -165,7 +120,7 @@ class Probe:
         if not self.active or self._actor is None:
             return None
         if self._actor_key is None:
-            self.snapshots.append(net_trees(self._actor))
+            self.snapshots.append(self.ctx.arch.program_trees(self._actor))
             self._actor_key = len(self.snapshots) - 1
         return self._actor_key
 
@@ -346,6 +301,7 @@ class Probe:
     def watch_learner(self, patches, learner):
         probe, rec = self, self.learner
         steps = int(self.ctx.mix["checked_steps"])
+        leaf = self.ctx.arch.leaf_name
 
         def make(fn):
             def train_step(env_cfg, net_cfg, train_cfg, ts, batch,
@@ -354,7 +310,7 @@ class Probe:
                 take = probe.setup_phase and n < steps
                 if take:
                     if n == 0:
-                        rec["p0"] = {flax_name(k): v.detach().float().clone()
+                        rec["p0"] = {leaf(k): v.detach().float().clone()
                                      for k, v in ts.net.named_parameters()}
                     rec["batches"].append([t.clone() for t in batch])
                     rec["samples"].append(probe.last_sample)
@@ -366,10 +322,10 @@ class Probe:
                     rec["losses"].append(float(aux["loss"]))
                     if n == 0:
                         rec["mu1"] = {
-                            flax_name(k): m.detach().float().clone()
+                            leaf(k): m.detach().float().clone()
                             for (k, _), m in zip(ts.net.named_parameters(),
                                                  ts.opt_state.mu)}
-                    rec["pK"] = {flax_name(k): v.detach().float().clone()
+                    rec["pK"] = {leaf(k): v.detach().float().clone()
                                  for k, v in ts.net.named_parameters()}
                 return ts, aux
             return train_step
@@ -463,7 +419,7 @@ class Probe:
             cat = [torch.cat(x) for x in
                    zip(*(e[1:] for e in self.evals if e[0] == key))]
             board, to_play, last, logits, value = cat
-            ref_logp, ref_value = ref_net.evaluate(
+            ref_logp, ref_value = self.ctx.arch.evaluate(
                 p, s, self.ctx.cfg.env.board_size, board, to_play, last,
                 quant=quant)
             legal = board == 0
@@ -481,13 +437,14 @@ class Probe:
     def _ref_evaluate(self, p, s, quant):
         """The reference net as the reference searches call it."""
         size, dev = self.ctx.cfg.env.board_size, self.ctx.device
+        arch = self.ctx.arch
 
         def evaluate(board, to_play, last):
             t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             logits, value = [], []
             for lo in range(0, board.shape[0], 1024):
                 sl = slice(lo, lo + 1024)
-                lg, v = ref_net.forward(p, s, ref_net.features(
+                lg, v = arch.forward(p, s, arch.features(
                     size, t(board[sl]), t(to_play[sl]), t(last[sl])), quant)
                 logits.append(lg.cpu().numpy())
                 value.append(v.cpu().numpy())
@@ -662,8 +619,8 @@ class Probe:
             if sample is None:   # a batch the benchmark did not draw
                 faults += int(got[0].shape[0])
                 continue
-            want = ref_learner.batch_from_rows(self.ctx.cfg.env.board_size,
-                                               *sample)
+            want = ref_learner.batch_from_rows(
+                self.ctx.arch, self.ctx.cfg.env.board_size, *sample)
             same = torch.ones(want[0].shape[0], dtype=torch.bool,
                               device=want[0].device)
             if all(g.shape == w.shape for g, w in zip(got, want)):
@@ -679,7 +636,8 @@ class Probe:
                        change_gap_median=None)
             return res
         dev = self.ctx.device
-        ref = ref_learner.run_steps(weights[0], batches, train, dev)
+        arch = self.ctx.arch
+        ref = ref_learner.run_steps(arch, weights[0], batches, train, dev)
         prog = {"losses": rec["losses"],
                 "first_grad": {k: float(torch.linalg.vector_norm(m))
                                / (1 - ref_learner.ADAM_B1)
@@ -689,11 +647,11 @@ class Probe:
         res.update(learner_gaps(prog, ref))
         res["learner_steps_checked"] = len(batches)
         if control:
-            low = ref_learner.run_steps(weights[0], batches, train, dev,
-                                        quant=ref_net.fp8)
+            low = ref_learner.run_steps(arch, weights[0], batches, train,
+                                        dev, quant=ref_net.fp8)
             out.setdefault("control", {}).update(learner_gaps(low, ref))
             half = ref_learner.run_steps(
-                weights[0], [[t[:t.shape[0] // 2] for t in b]
+                arch, weights[0], [[t[:t.shape[0] // 2] for t in b]
                              for b in batches], train, dev)
             out["fault_half_batch"] = learner_gaps(half, ref)
         return res

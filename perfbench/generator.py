@@ -1,5 +1,5 @@
-"""The general traffic generator: what every kind of traffic shares, and
-the kinds found by name.
+"""The general traffic generator: what every kind of traffic shares, the
+kinds and the architectures found by name, and the weights.
 
 A kind of traffic is a file ``perfbench/kinds/<kind>.py`` with a class
 ``Kind`` (a subclass of ``Base``); a mix's data file
@@ -11,6 +11,10 @@ lockstep ply of self-play, a training iteration, an AI move). Each unit
 is a closed loop: the next starts when the last ends. ``Kind.NUMBERS``
 names the numbers its check compares, each with a limit in the cell's
 ``perfbench/limits/<workload>.json``.
+
+A configuration's net is an architecture, ``perfbench/archs/<arch>.py``
+(``Arch``): the reference net, its weights, its FLOPs and the kernels
+whose rooflines the benchmark reads.
 """
 
 from __future__ import annotations
@@ -18,14 +22,15 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
 from perfbench.reference import bundle as ref_bundle
+from perfbench.reference import net as ref_net
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+ARCHS = os.path.join(HERE, "archs")
 
 
 def run_config(cfg_doc: Dict, mix: Dict):
@@ -40,64 +45,67 @@ def run_config(cfg_doc: Dict, mix: Dict):
     return apply_overrides(get_preset(role["preset"]), sets)
 
 
-def random_weights(env: Dict, net: Dict, seed: int):
-    """Flax-layout (params, batch_stats) drawn from `seed` (He-scaled
-    kernels, perturbed batch norm): for configurations that name no
-    bundle, as the CPU tests' small ones."""
-    rng = np.random.default_rng(seed)
-    c, a, hid = net["channels"], env["board_size"] ** 2, net["value_hidden"]
-    f32 = np.float32
-
-    def conv(k, cin, cout):
-        return {"kernel": (rng.standard_normal((k, k, cin, cout))
-                           * (2.0 / (k * k * cin)) ** 0.5).astype(f32)}
-
-    def dense(cin, cout):
-        return {"kernel": (rng.standard_normal((cin, cout))
-                           * cin ** -0.5).astype(f32),
-                "bias": (0.1 * rng.standard_normal(cout)).astype(f32)}
-
-    def bn(n):
-        return ({"scale": (1 + 0.1 * rng.standard_normal(n)).astype(f32),
-                 "bias": (0.1 * rng.standard_normal(n)).astype(f32)},
-                {"mean": (0.1 * rng.standard_normal(n)).astype(f32),
-                 "var": (1 + 0.2 * rng.random(n)).astype(f32)})
-
-    params, stats = {"stem_conv": conv(3, 4, c)}, {}
-    params["stem_bn"], stats["stem_bn"] = bn(c)
-    for i in range(net["blocks"]):
-        p, s = {}, {}
-        p["conv1"], p["conv2"] = conv(3, c, c), conv(3, c, c)
-        (p["bn1"], s["bn1"]), (p["bn2"], s["bn2"]) = bn(c), bn(c)
-        params[f"block{i}"], stats[f"block{i}"] = p, s
-    params["policy_conv"] = conv(1, c, 2)
-    params["policy_bn"], stats["policy_bn"] = bn(2)
-    params["policy_fc"] = dense(2 * a, a)
-    params["value_conv"] = conv(1, c, 1)
-    params["value_bn"], stats["value_bn"] = bn(1)
-    params["value_fc1"], params["value_fc2"] = dense(a, hid), dense(hid, 1)
-    return params, stats
-
-
 def load_weights(ctx) -> tuple:
     """(params, batch_stats) of the role's bundle, read by the
-    benchmark's own reader and checked against the configuration's
-    sizes; handed as the same numpy trees to the program and to the
+    benchmark's own reader and checked by the architecture against the
+    configuration, or drawn by it from the seed where the role names
+    ``random``; handed as the same numpy trees to the program and to the
     reference."""
     path = ctx.cfg_doc["roles"][ctx.mix["role"]]["weights"]
     if path == "random":
-        return random_weights(ctx.cfg_doc["env"], ctx.cfg_doc["net"],
-                              ctx.seed)
+        return ctx.arch.random_weights(ctx.seed)
     params, stats, saved = ref_bundle.load(os.path.join(ctx.root, path))
-    want = (ctx.cfg_doc["env"]["board_size"], ctx.cfg_doc["net"]["blocks"],
-            ctx.cfg_doc["net"]["channels"],
-            ctx.cfg_doc["net"]["value_hidden"])
-    got = (saved["env"]["board_size"], saved["net"]["blocks"],
-           saved["net"]["channels"], saved["net"]["value_hidden"])
-    if want != got:
-        raise ValueError(f"{path} holds board, blocks, channels, "
-                         f"value_hidden {got}; the configuration {want}")
+    try:
+        ctx.arch.check_bundle(saved)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from e
     return params, stats
+
+
+class Arch:
+    """A configuration's architecture: the module ``archs/<name>.py``
+    named by the configuration's ``"arch"`` (``resnet`` where it names
+    none), bound to the configuration's env and net. What the module does
+    not define is shared: ``features`` (``reference/net.py``'s input
+    planes) and ``evaluate``, built on the module's ``forward``."""
+
+    def __init__(self, cfg_doc: Dict):
+        self.name = cfg_doc.get("arch", "resnet")
+        self.env, self.net = cfg_doc["env"], cfg_doc["net"]
+        self.mod = load_module(ARCHS, self.name)
+        self.forward = self.mod.forward
+        self.forward_train = self.mod.forward_train
+        self.features = getattr(self.mod, "features", ref_net.features)
+        self.program_trees = self.mod.program_trees
+        self.leaf_name = self.mod.leaf_name
+
+    def random_weights(self, seed: int) -> tuple:
+        return self.mod.random_weights(self.env, self.net, seed)
+
+    def check_bundle(self, saved: Dict) -> None:
+        self.mod.check_bundle(saved, self.env, self.net)
+
+    def flops_per_position(self) -> float:
+        return self.mod.flops_per_position(self.env, self.net)
+
+    def kernels(self) -> List[tuple]:
+        return self.mod.kernels(self.env, self.net)
+
+    def kernel_work(self, span: str, batch: int) -> List[tuple]:
+        return self.mod.kernel_work(span, batch, self.env, self.net)
+
+    def evaluate(self, params, stats, size: int, board, to_play, last,
+                 block: int = 1024, quant: Optional[Callable] = None):
+        """`forward` on flat boards, `block` rows at a time: (log-policy
+        over the empty cells [B, S²] with −inf elsewhere, value [B])."""
+        logps, values = [], []
+        for lo in range(0, board.shape[0], block):
+            sl = slice(lo, lo + block)
+            logits, value = self.forward(params, stats, self.features(
+                size, board[sl], to_play[sl], last[sl]), quant)
+            logps.append(ref_net.masked_log_softmax(logits, board[sl] == 0))
+            values.append(value)
+        return torch.cat(logps), torch.cat(values)
 
 
 class Base:
@@ -115,6 +123,11 @@ class Base:
         """[(batch, calls)] of the net's forwards one unit needs."""
         raise NotImplementedError
 
+    def device_start(self) -> None:
+        """Where the device stretch starts (``harness.device_stretch``):
+        here, where the window stopped; a kind whose units' device work
+        depends on where its state stands starts it from a fixed one."""
+
     def positions_per_unit(self) -> int:
         return sum(b * n for b, n in self.forward_batches())
 
@@ -124,14 +137,19 @@ class Base:
         return torch.ones_like(state.done)
 
 
-def load_kind(name: str, root: str = HERE):
-    """The class ``Kind`` of ``kinds/<name>.py``."""
-    path = os.path.join(root, "kinds", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(f"perfbench_kind_{name}",
-                                                  path)
+def load_module(directory: str, name: str):
+    """The module ``<directory>/<name>.py``, found by its name."""
+    spec = importlib.util.spec_from_file_location(
+        f"perfbench_{os.path.basename(directory)}_{name.replace('.', '_')}",
+        os.path.join(directory, f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.Kind
+    return mod
+
+
+def load_kind(name: str, root: str = HERE):
+    """The class ``Kind`` of ``kinds/<name>.py``."""
+    return load_module(os.path.join(root, "kinds"), name).Kind
 
 
 def load_json(path: str) -> Dict:

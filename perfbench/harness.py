@@ -1,6 +1,7 @@
-"""Run one cell once: set-up, the measured window, with ``--trace 1``
-the traced window and the profiled sub-window, then the check that
-decides ``correct``. ``perfbench/run.py`` is the command; this module is
+"""Run one cell once: set-up, the measured window, the device stretch
+where an end-to-end metric of the run reads the device's trace, with
+``--trace 1`` the traced window and the profiled sub-window, then the
+check that decides ``correct``. ``perfbench/run.py`` is the command; this module is
 what it and the tests call.
 
 Everything a cell is made of is found by name:
@@ -9,6 +10,9 @@ Everything a cell is made of is found by name:
   the metrics it reports;
 * ``perfbench/configs/<config>.json``: the model (env and net), the
   presets and weights bundles of its roles;
+* ``perfbench/archs/<arch>.py``: the architecture the configuration
+  names (``"arch"``, ``resnet`` where it names none): the reference net,
+  its weights, FLOPs and the kernels it spans (``generator.Arch``);
 * ``perfbench/traffic/<mix>.json``: the kind of traffic, its ``--set``
   overrides, what it records for the check and the units of its
   profiled sub-window;
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib.util
+import importlib
 import os
 import time
 from typing import Dict, List, Optional
@@ -53,6 +57,7 @@ class Run:
     work: Optional[Dict] = None      # the window's work, for the yardstick
     unit_s: List[float] = dataclasses.field(default_factory=list)
     setup_phases: Dict = dataclasses.field(default_factory=dict)
+    device: Optional[Dict] = None    # the device stretch's reading
 
 
 class Context:
@@ -64,6 +69,7 @@ class Context:
         self.device, self.root = device, root
         self.cfg = generator.run_config(cfg_doc, mix)
         self.kind = generator.load_kind(mix["kind"])
+        self.arch = generator.Arch(cfg_doc)
         self.patches = tracing.Patches()
         self.inst = tracing.Instruments(mix.get("timed", ()), self.sync)
         self.probe = checks.Probe(self)
@@ -78,11 +84,10 @@ class Context:
 
     def instrument_search(self):
         """Spans (and timers, where the mix names them) on the layers
-        every kind runs, and the probe on the env step and on the
-        searches' random draws."""
+        every kind runs and on the architecture's kernels, and the probe
+        on the env step and on the searches' random draws."""
         from alphafive_tpu_torch.env import vector
         from alphafive_tpu_torch.mcts import gumbel, search, search_capped
-        from alphafive_tpu_torch.ops import resblock as rb
         self.patches.wrap(search_capped, "dirichlet_noise",
                           self.probe.wrap_draw("noise"))
         self.patches.wrap(gumbel, "_gumbel_noise",
@@ -90,7 +95,9 @@ class Context:
         self.patch(search_capped, "_select_lanes", "descent")
         self.patch(search, "_select_one", "descent")
         self.patch(search_capped, "_backup", "backup")
-        self.patch(rb, "fused_resblock", "resblock")
+        for span, target in self.arch.kernels():
+            module, attr = target.split(":")
+            self.patch(importlib.import_module(module), attr, span)
         self.patches.wrap(search_capped, "run_mcts_capped",
                           self.probe.wrap_search)
         self.patches.wrap(search_capped, "_select_lanes",
@@ -100,12 +107,7 @@ class Context:
 
 
 def load_metric(name: str, root: str = HERE):
-    path = os.path.join(root, "metrics", f"{name}.py")
-    spec = importlib.util.spec_from_file_location(
-        f"perfbench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return generator.load_module(os.path.join(root, "metrics"), name).read
 
 
 def cell(bench: Dict, workload: str, root: str) -> tuple:
@@ -127,9 +129,12 @@ def cell(bench: Dict, workload: str, root: str) -> tuple:
 
 def run(cfg_doc: Dict, mix: Dict, limits: Dict, *, workload: str,
         seed: int, seconds: float, trace: bool, device: str, root: str,
-        t_start: float, metrics: List[str], control: bool = False) -> Dict:
+        t_start: float, metrics: List[str], control: bool = False,
+        stretch: bool = False) -> Dict:
     """One run of a cell; returns the result (the keys of the result
-    line, and ``checks`` with each number beside its limit)."""
+    line, and ``checks`` with each number beside its limit). `stretch`:
+    run the device stretch after the window (a metric of `metrics` reads
+    the device's trace)."""
     ctx = Context(cfg_doc, mix, seed, device, root)
     t_ctx = time.perf_counter()
     probe = ctx.probe
@@ -171,6 +176,8 @@ def run(cfg_doc: Dict, mix: Dict, limits: Dict, *, workload: str,
         peak = (torch.cuda.max_memory_allocated()
                 if str(device).startswith("cuda") else 0)
         probe.after_window()
+        if stretch:
+            rec.device = device_stretch(ctx, traffic)
         if trace:
             rec.profile = profile_units(ctx, traffic)
         traffic.release()
@@ -198,49 +205,52 @@ def run(cfg_doc: Dict, mix: Dict, limits: Dict, *, workload: str,
             "checks": checked, "readings": readings, "run": rec}
 
 
-def profile_units(ctx: Context, traffic) -> Dict:
-    """The profiled sub-windows, with the timers off. First
-    ``profile_units`` whole units under ``torch.profiler`` tracing the
-    device alone: the device's busy time over the sub-window's wall time
-    and the operations that took most time. Then ``span_units`` units
-    with the host's spans on as well: where the device's idle gaps fall
-    and the device time launched inside each span. Units whose trace
-    holds no device event (CUPTI has been seen to drop a whole trace) are
-    traced again, up to three times."""
+def traced(ctx: Context, traffic, units: int, spans: bool) -> tuple:
+    """`units` whole units under ``torch.profiler``: the raw kineto
+    events, the wall seconds and the units' totals. With `spans` the
+    host's activity and the benchmark's spans are traced too, else the
+    device alone. Units whose trace holds no device event (CUPTI has been
+    seen to drop a whole trace) are traced again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
     cuda = str(ctx.device).startswith("cuda")
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    totals: Dict = {}
+    for _ in range(3 if cuda else 1):
+        ctx.sync()
+        with profile(activities=acts if spans else acts[-1:]) as prof:
+            ctx.inst.spanning = spans
+            t0 = time.perf_counter()
+            with torch.profiler.record_function("pb.window"):
+                for _ in range(units):
+                    with torch.profiler.record_function(
+                            "pb." + traffic.unit_name):
+                        out = traffic.unit()
+                    for k, v in out.items():
+                        totals[k] = totals.get(k, 0) + v
+                ctx.sync()
+            wall = time.perf_counter() - t0
+            ctx.inst.spanning = False
+        events = prof.profiler.kineto_results.events()
+        if any(str(e.device_type()).endswith("CUDA") for e in events):
+            break
+    return events, wall, totals
 
-    def traced(units: int, spans: bool):
-        totals: Dict = {}
-        for _ in range(3 if cuda else 1):
-            ctx.sync()
-            with profile(activities=acts if spans else acts[-1:]) as prof:
-                ctx.inst.spanning = spans
-                t0 = time.perf_counter()
-                with torch.profiler.record_function("pb.window"):
-                    for _ in range(units):
-                        with torch.profiler.record_function(
-                                "pb." + traffic.unit_name):
-                            out = traffic.unit()
-                        for k, v in out.items():
-                            totals[k] = totals.get(k, 0) + v
-                    ctx.sync()
-                wall = time.perf_counter() - t0
-                ctx.inst.spanning = False
-            events = prof.profiler.kineto_results.events()
-            if any(str(e.device_type()).endswith("CUDA") for e in events):
-                break
-        return events, wall, totals
 
+def profile_units(ctx: Context, traffic) -> Dict:
+    """The profiled sub-windows, with the timers off. First
+    ``profile_units`` whole units tracing the device alone: the device's
+    busy time over the sub-window's wall time and the operations that
+    took most time. Then ``span_units`` units with the host's spans on as
+    well: where the device's idle gaps fall and the device time launched
+    inside each span."""
     n = int(ctx.mix["profile_units"])
-    events, wall, totals = traced(n, spans=False)
+    events, wall, totals = traced(ctx, traffic, n, spans=False)
     t1 = time.perf_counter()
     red = tracing.device_reading(events)
     red.update(window_s=wall, units=n, totals=totals,
                reduce_s=time.perf_counter() - t1)
     m = int(ctx.mix["span_units"])
-    events, _, totals = traced(m, spans=True)
+    events, _, totals = traced(ctx, traffic, m, spans=True)
     t2 = time.perf_counter()
     spans = tracing.span_reading(events)
     red["spans"] = dict(spans, units=m, **work(ctx, traffic, m, totals))
@@ -248,20 +258,36 @@ def profile_units(ctx: Context, traffic) -> Dict:
     return red
 
 
+def device_stretch(ctx: Context, traffic) -> Dict:
+    """The device stretch, read by the end-to-end metrics whose source is
+    the device's trace: ``device_units`` whole units from the kind's
+    ``device_start()`` (work fixed for every seed, in a seeded order),
+    tracing the device alone. Its busy time follows the device's work,
+    not the host's speed, which the window's wall time does."""
+    t0 = time.perf_counter()
+    traffic.device_start()
+    n = int(ctx.mix["device_units"])
+    events, wall, totals = traced(ctx, traffic, n, spans=False)
+    red = tracing.device_reading(events)
+    red.update(window_s=wall, units=n, totals=totals,
+               stretch_s=time.perf_counter() - t0)
+    return red
+
+
 def work(ctx: Context, traffic, n: int, totals: Dict) -> Dict:
     """The work the configuration needs in `n` units, for the yardstick:
-    FLOPs of the forwards (and of the learner's steps: forward and
-    backward, 3 forwards' worth) and the least time of the residual
-    blocks' work."""
-    env, net = ctx.cfg_doc["env"], ctx.cfg_doc["net"]
-    nf = yardstick.net_flops(env["board_size"], net["blocks"],
-                             net["channels"], net["value_hidden"])
+    ``flops``, the FLOPs of the forwards (and of the learner's steps:
+    forward and backward, 3 forwards' worth), and ``bounds_s``, the least
+    time of each of the architecture's kernels' work, by span."""
+    arch = ctx.arch
+    nf = arch.flops_per_position()
     rows = totals.get("learner_steps", 0) * ctx.cfg.replay.batch_size
     flops = n * traffic.positions_per_unit() * nf + 3 * rows * nf
-    bound = 0.0
-    for batch, calls in traffic.forward_batches():
-        f, b = yardstick.resblock_work(batch, env["board_size"],
-                                       net["channels"], net["compute_dtype"])
-        bound += n * calls * net["blocks"] * yardstick.bound_s(
-            f, b, net["compute_dtype"])
-    return {"flops": flops, "resblock_bound_s": bound}
+    bounds = {}
+    for span, _ in arch.kernels():
+        bound = 0.0
+        for batch, calls in traffic.forward_batches():
+            for f, b, dtype, k in arch.kernel_work(span, batch):
+                bound += n * calls * k * yardstick.bound_s(f, b, dtype)
+        bounds[span] = bound
+    return {"flops": flops, "bounds_s": bounds}

@@ -2,7 +2,9 @@
 without noise and the most visited move, then ``env.vector.step``. The AI
 plays both sides; each game opens with ``opening_stones`` stones drawn
 from the seed among the empty cells of the central ``opening_span`` ×
-``opening_span`` square, and a new game starts when one ends.
+``opening_span`` square, and a new game starts when one ends. The device
+stretch plays the games whose openings ``device_seed`` draws, the same
+positions for every seed.
 """
 
 from __future__ import annotations
@@ -48,6 +50,12 @@ class Kind(generator.Base):
         for a in self.openings.sample(cells, int(mix["opening_stones"])):
             self.st = self.vector.step(cfg.env, self.st, torch.tensor(
                 [a], dtype=torch.int32, device=self.ctx.device))
+
+    def device_start(self):
+        """The device stretch's start: a new game from the first opening
+        that ``device_seed`` draws, and each later game from the next."""
+        self.openings = random.Random(int(self.ctx.mix["device_seed"]))
+        self.new_game()
 
     def forward_batches(self):
         m = self.ctx.cfg.mcts

@@ -6,8 +6,9 @@ mix of game phases of a long self-play run and not only openings: env j
 plays d_j moves, the d_j an even spread over ``0 … stagger_plies − 1``
 dealt to the envs in an order drawn from the seed (every seed plays the
 same set of depths), each move drawn from the plain reference net's
-policy over the empty cells, by a generator seeded from the seed. An env
-whose game would end there stops a move short.
+policy over the empty cells (the configuration's architecture's), by a
+generator seeded from the seed. An env whose game would end there stops
+a move short.
 """
 
 from __future__ import annotations
@@ -65,11 +66,12 @@ class Kind(generator.Base):
             return state
         size = ctx.cfg.env.board_size
         depth = self.depths(self.envs, n, ctx.seed).to(ctx.device)
+        arch = ctx.arch
         p, s = (ref_net.tree_to_torch(t, ctx.device) for t in ctx.weights)
         gen = torch.Generator(device=ctx.device).manual_seed(
             (ctx.seed * 2654435761 + 97) % (2 ** 63))
         for k in range(int(depth.max())):
-            logits, _ = ref_net.forward(p, s, ref_net.features(
+            logits, _ = arch.forward(p, s, arch.features(
                 size, state.board, state.to_play, state.last_move))
             logp = ref_net.masked_log_softmax(logits, state.board == 0)
             a = torch.multinomial(logp.exp(), 1, generator=gen)[:, 0]

@@ -29,14 +29,15 @@ def timer_ms_per_unit(run, name: str) -> Optional[float]:
 
 
 def roofline(run, span: str = "resblock") -> Optional[float]:
-    """% of the least time of the residual blocks' work the
-    configuration needs in the spans' sub-window, over the device time
-    of what was launched inside the span."""
+    """% of the least time of the work of `span`'s kernel (one of the
+    architecture's kernels) the configuration needs in the spans'
+    sub-window, over the device time of what was launched inside the
+    span."""
     p = run.profile and run.profile["spans"]
     t = p and p["span_device_s"].get(span)
-    if not t:
+    if not t or span not in p["bounds_s"]:
         return None
-    return 100.0 * p["resblock_bound_s"] / t
+    return 100.0 * p["bounds_s"][span] / t
 
 
 def mfu(run) -> Optional[float]:

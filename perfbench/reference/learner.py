@@ -3,8 +3,10 @@
 Loss: policy cross-entropy ``−Σ π · log softmax(logits)`` averaged over
 the rows whose π is a target (``pi_valid``), plus ``value_loss_weight`` ×
 the squared value error averaged over the rows whose game ended
-(``z_valid``); each average divides by max(count, 1). The forward
-normalises by the batch's statistics.
+(``z_valid``); each average divides by max(count, 1). The forward is
+the configuration's architecture's training forward (`arch`, as
+``perfbench/generator.py::Arch`` binds it: its ``forward_train`` and
+``features``), which normalises by the batch's statistics.
 
 Step ``n`` (from 0): gradients clipped to global norm 1 (divided by the
 norm when it is 1 or more), Adam (0.9, 0.999, eps 1e-8, bias corrections
@@ -45,9 +47,9 @@ def dihedral(size: int):
     return perm, inv
 
 
-def batch_from_rows(size: int, sym: torch.Tensor, rows) -> List:
-    """[features f32[B, S, S, 4], π, z, z_valid, pi_valid] (f32) of ring
-    rows under symmetries `sym` [B]."""
+def batch_from_rows(arch, size: int, sym: torch.Tensor, rows) -> List:
+    """[features, π, z, z_valid, pi_valid] (f32) of ring rows under
+    symmetries `sym` [B], the features `arch.features`'s."""
     board, to_play, last, pi, z, z_valid, pi_valid = rows
     dev = board.device
     perm, inv = (torch.from_numpy(t).to(dev) for t in dihedral(size))
@@ -56,7 +58,7 @@ def batch_from_rows(size: int, sym: torch.Tensor, rows) -> List:
     pi = pi.float().gather(1, perm[k])
     last = last.long()
     last = torch.where(last < 0, last, inv[k, last.clamp(min=0)])
-    feats = ref_net.features(size, board, to_play, last)
+    feats = arch.features(size, board, to_play, last)
     return [feats, pi, z.float(), z_valid.float(), pi_valid.float()]
 
 
@@ -83,10 +85,10 @@ def _rebuild(flat: Dict[str, torch.Tensor]):
     return tree
 
 
-def loss(params, batch, value_weight: float,
+def loss(arch, params, batch, value_weight: float,
          quant: Optional[Callable] = None) -> torch.Tensor:
     feats, pi, z, z_valid, pi_valid = batch
-    logits, value = ref_net.forward_train(params, feats, quant)
+    logits, value = arch.forward_train(params, feats, quant)
     logp = torch.log_softmax(logits, dim=-1)
     ce = (pi * logp).sum(-1)
     policy = -(ce * pi_valid).sum() / pi_valid.sum().clamp(min=1.0)
@@ -102,9 +104,10 @@ def learning_rate(lr: float, warmup: int, count: int) -> float:
     return float((f32(0.0) - f32(lr)) * frac + f32(lr))
 
 
-def run_steps(params_np, batches: List, train: Dict, device,
+def run_steps(arch, params_np, batches: List, train: Dict, device,
               quant: Optional[Callable] = None, lr_scale: float = 1.0):
-    """Follow ``len(batches)`` steps from the flax-layout `params_np`.
+    """Follow ``len(batches)`` steps from the flax-layout `params_np`, the
+    net `arch.forward_train`'s.
 
     Returns {"losses": [float], "first_grad": {leaf: ‖clipped g₀‖},
     "raw_grad": {leaf: ‖g₀‖}, "change": {leaf: ‖p_K − p_0‖}} with leaves
@@ -117,7 +120,7 @@ def run_steps(params_np, batches: List, train: Dict, device,
     names = list(p)
     with ref_net.no_tf32():
         for n, batch in enumerate(batches):
-            lval = loss(_rebuild(p), [t.float() for t in batch],
+            lval = loss(arch, _rebuild(p), [t.float() for t in batch],
                         float(train["value_loss_weight"]), quant)
             grads = torch.autograd.grad(lval, [p[k] for k in names])
             out["losses"].append(float(lval.detach()))

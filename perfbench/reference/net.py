@@ -15,7 +15,9 @@ HWIO, dense kernels ``[in, out]``.
 ``E[y²] − E[y]²`` clipped at 0. ``quant`` (a function applied to every
 conv and dense input and weight) turns the same equations into a lower
 precision: ``fp8`` is the control that must come out as not correct.
-Matmuls run with TF32 off.
+Matmuls run with TF32 off. This is the ``resnet`` architecture's net
+(``perfbench/archs/resnet.py``); ``features`` and the masked softmax are
+shared by every architecture.
 """
 
 from __future__ import annotations
@@ -159,21 +161,6 @@ def forward_train(params, feats: torch.Tensor,
     q = quant or _ident
     return _apply(params, feats.float(), q,
                   lambda y, path: _bn_train(y, _at(params, path)))
-
-
-def evaluate(params, stats, size: int, board, to_play, last,
-             block: int = 1024, quant: Optional[Callable] = None):
-    """`forward` on flat boards, `block` rows at a time: (log-policy over
-    the empty cells [B, S²] with −inf elsewhere, value [B])."""
-    logps, values = [], []
-    for lo in range(0, board.shape[0], block):
-        sl = slice(lo, lo + block)
-        logits, value = forward(params, stats,
-                                features(size, board[sl], to_play[sl],
-                                         last[sl]), quant)
-        logps.append(masked_log_softmax(logits, board[sl] == 0))
-        values.append(value)
-    return torch.cat(logps), torch.cat(values)
 
 
 def masked_log_softmax(logits: torch.Tensor,

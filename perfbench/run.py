@@ -79,11 +79,15 @@ def main(argv=None) -> int:
         print(f"perfbench: {args.workload} needs {w['chips']} cards, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 2
+    metrics = layer if args.trace else e2e
+    sources = {m["name"]: m["source"]
+               for m in bench["end_to_end"] + bench["per_layer"]}
     res = harness.run(cfg_doc, mix, limits, workload=args.workload,
                       seed=args.seed, seconds=args.seconds,
                       trace=bool(args.trace), device="cuda", root=ROOT,
-                      t_start=T_START,
-                      metrics=layer if args.trace else e2e)
+                      t_start=T_START, metrics=metrics,
+                      stretch=not args.trace and any(
+                          sources[m] == "device_trace" for m in metrics))
     bad = loaded_forbidden()
     if bad:
         print(f"perfbench: loaded in this process: {', '.join(bad)}",
@@ -123,6 +127,10 @@ def main(argv=None) -> int:
                     "unit_ms": [round(1e3 * t, 1) for t in rec.unit_s],
                     "evaluations": res["readings"].get("evaluations"),
                     "judged": res["readings"].get("judged")}
+    if rec.device:
+        line["info"]["stretch"] = {k: rec.device[k] for k in
+                                   ("busy_s", "window_s", "units", "totals",
+                                    "stretch_s")}
     line["checks"] = res["checks"]
     for name, c in res["checks"].items():
         print(f"check {name} {c['value']} limit {c['limit']}",

@@ -65,6 +65,8 @@ def tiny(kind: str, rules: str = "freestyle", sets=()):
                                          f"{MIXES[kind]}.json"))
     mix["capture"].update(eval_p=0.5, step_p=0.5, root_every=1)
     mix["profile_units"] = 1
+    if "device_units" in mix:
+        mix["device_units"] = 2
     return cfg_doc, mix
 
 
@@ -83,11 +85,12 @@ def cell_limits(kind: str):
 
 def run_tiny(kind: str, seed: int = 2 ** 31 + 11, seconds: float = 1.0,
              rules: str = "freestyle", trace: bool = False,
-             control: bool = False, limits=None, sets=()):
+             control: bool = False, limits=None, sets=(),
+             stretch: bool = False):
     from perfbench import harness
     cfg_doc, mix = tiny(kind, rules, sets)
     return harness.run(cfg_doc, mix, limits or cell_limits(kind),
                        workload="tiny", seed=seed, seconds=seconds,
                        trace=trace, device="cpu", root=ROOT,
                        t_start=time.perf_counter(), metrics=["setup_s"],
-                       control=control)
+                       control=control, stretch=stretch)

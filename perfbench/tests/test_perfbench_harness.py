@@ -73,7 +73,8 @@ def test_benchmark_form():
         assert w["chips"] == 1 and len(w["why"]) <= 200
     e2e = {m["name"] for m in BENCH["end_to_end"]}
     for m in BENCH["end_to_end"]:
-        assert 0.01 <= m["bound"] <= 0.25 and m["source"] == "host_clock"
+        assert 0.01 <= m["bound"] <= 0.25
+        assert m["source"] in ("host_clock", "device_trace")
     for m in BENCH["end_to_end"] + BENCH["per_layer"]:
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
     for m in BENCH["per_layer"]:
@@ -99,6 +100,8 @@ def test_config_flops_match_yardstick(config):
     assert doc["net_flops_per_position"] == yardstick.net_flops(
         env["board_size"], net["blocks"], net["channels"],
         net["value_hidden"])
+    assert generator.Arch(doc).flops_per_position() \
+        == doc["net_flops_per_position"]
 
 
 @pytest.mark.parametrize("batch,board,channels,ms", [
@@ -141,6 +144,30 @@ def test_traced_run_small():
                  "device_idle_share.selfplay"):
         assert harness.load_metric(name)(rec) is None
     assert harness.load_metric("descent_ms_per_ply.selfplay")(rec) > 0
+
+
+def test_device_stretch_small():
+    """The device stretch on the CPU: its units after the window, from
+    the same positions whatever the seed; no device events here, so
+    move_device_ms finds nothing to read."""
+    from conftest import tiny
+    res = run_tiny("play", rules="renju", stretch=True)
+    rec = res["run"]
+    assert rec.device["units"] == 2 and rec.device["totals"]["moves"] == 2
+    assert rec.device["busy_s"] == 0 and rec.device["window_s"] > 0
+    assert harness.load_metric("move_device_ms")(rec) is None
+    assert res["correct"] and res["failed"] == 0
+    boards = []
+    for seed in (5, 2 ** 31 + 7):
+        cfg_doc, mix = tiny("play", "renju")
+        ctx = harness.Context(cfg_doc, mix, seed, "cpu", ROOT)
+        try:
+            traffic = ctx.kind(ctx)
+            traffic.device_start()
+            boards.append(traffic.st.board.clone())
+        finally:
+            ctx.patches.restore()
+    assert torch.equal(boards[0], boards[1]) and boards[0].any()
 
 
 def test_span_reading_attributes_device_time():
@@ -187,17 +214,18 @@ def test_span_reading_attributes_device_time():
 def test_reference_agrees_across_blocks(size, rules):
     """The reference gives the same answers whatever its block of rows."""
     cfg = {"board_size": size, "n_in_row": 5, "rules": rules}
-    net = {"blocks": 2, "channels": 16, "value_hidden": 16}
-    params, stats = generator.random_weights(cfg, net, 3)
+    arch = generator.Arch({"env": cfg, "net": {
+        "blocks": 2, "channels": 16, "value_hidden": 16}})
+    params, stats = arch.random_weights(3)
     p, s = (ref_net.tree_to_torch(t, "cpu") for t in (params, stats))
     g = torch.Generator().manual_seed(5)
     n, a = 37, size * size
     board = torch.randint(-1, 2, (n, a), generator=g).to(torch.int8)
     to_play = (torch.randint(0, 2, (n,), generator=g) * 2 - 1).to(torch.int8)
     last = torch.randint(-1, a, (n,), generator=g).to(torch.int32)
-    one = ref_net.evaluate(p, s, size, board, to_play, last, block=n)
+    one = arch.evaluate(p, s, size, board, to_play, last, block=n)
     for block in (1, 5, 16):
-        many = ref_net.evaluate(p, s, size, board, to_play, last, block=block)
+        many = arch.evaluate(p, s, size, board, to_play, last, block=block)
         for x, y in zip(one, many):
             torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5)
 
@@ -209,8 +237,8 @@ def _search_setup(rules: str, overrides, roots: int = 5):
     from alphafive_tpu_torch.env import vector
     size = 9
     env = {"board_size": size, "n_in_row": 5, "rules": rules}
-    params, stats = generator.random_weights(
-        env, {"blocks": 2, "channels": 16, "value_hidden": 16}, 7)
+    params, stats = generator.Arch({"env": env, "net": {
+        "blocks": 2, "channels": 16, "value_hidden": 16}}).random_weights(7)
     p, s = (ref_net.tree_to_torch(t, "cpu") for t in (params, stats))
 
     def t_eval(board, to_play, last):
