@@ -26,7 +26,7 @@ from alphafive_tpu_torch import parallel
 from alphafive_tpu_torch.config import MeshConfig, RunConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.models.evaluator import net_evaluator
-from alphafive_tpu_torch.models.resnet import init_params
+from alphafive_tpu_torch.models.nets import init_params
 from alphafive_tpu_torch.parallel import distributed
 from alphafive_tpu_torch.train import actor
 

@@ -198,7 +198,10 @@ def _cmd_export(args, device) -> None:
 def _pretrained_dir(cfg):
     """Bundled pretrained model for this board size, if shipped: the
     strength-ranked variant where one exists (15×15 → ``15x15_lowsim``,
-    19×19 → ``19x19_10b``; see their READMEs), else the plain dir."""
+    19×19 → ``19x19_10b``; see their READMEs), else the plain dir; none
+    for a net other than the resnet (no bundle holds one)."""
+    if cfg.net.arch != "resnet":   # the bundles hold resnets only
+        return None
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     s = cfg.env.board_size
     ranked = {15: ["15x15_lowsim"], 19: ["19x19_10b"]}
@@ -217,7 +220,7 @@ def _load_model(cfg, workdir):
     net from ``cfg.train.seed``. The returned net_cfg is the one the
     weights were trained with: build the evaluator from it, not from the
     preset."""
-    from alphafive_tpu_torch.models.resnet import init_params
+    from alphafive_tpu_torch.models.nets import init_params
     from alphafive_tpu_torch.train import checkpoint as ckpt
 
     def fresh():

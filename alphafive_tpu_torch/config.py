@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 FREESTYLE = "freestyle"  # >=5 in a row wins (reference rules, SURVEY.md §2)
 RENJU_LITE = "renju_lite"  # black needs exactly 5; black overline is a loss
@@ -45,13 +45,38 @@ class EnvConfig:
 
 @dataclasses.dataclass(frozen=True)
 class NetConfig:
-    """Residual policy-value net (SURVEY.md §1 L3, §2 "Policy-value net")."""
+    """Residual policy-value net (SURVEY.md §1 L3, §2 "Policy-value net").
+
+    ``arch`` names the net: ``resnet`` (``models/resnet.py``, the JAX
+    package's) or ``katago_nbt`` (``models/katago_nbt.py``, KataGo's
+    nested-bottleneck net: ``blocks`` blocks on a trunk of ``channels``,
+    each two pre-activation 3×3 pairs at ``mid_channels``, the first pair
+    of the 1-based ``gpool_blocks`` with ``gpool_channels`` of global
+    pooling; heads of ``head_channels``, the value's hidden layer
+    ``value_hidden``). The other keys are read only by ``katago_nbt`` and
+    are left out of ``to_json`` under ``resnet``, so every resnet preset
+    and bundle serialises as the JAX package's does."""
 
     blocks: int = 4
     channels: int = 64
     value_hidden: int = 64
     compute_dtype: str = "bfloat16"  # params stay float32
     use_pallas: bool = False  # fused Pallas residual blocks (inference path)
+    arch: str = "resnet"
+    mid_channels: int = 192
+    gpool_channels: int = 64
+    gpool_blocks: Tuple[int, ...] = (3, 6, 9, 12, 15)
+    head_channels: int = 32
+
+    def __post_init__(self):
+        # a JSON round trip gives a list: keep the config hashable
+        object.__setattr__(self, "gpool_blocks", tuple(
+            int(b) for b in self.gpool_blocks))
+
+
+# NetConfig's keys that only katago_nbt reads (left out of resnet's JSON)
+_ARCH_KEYS = ("arch", "mid_channels", "gpool_channels", "gpool_blocks",
+              "head_channels")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,7 +266,11 @@ class RunConfig:
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+        d = dataclasses.asdict(self)
+        if self.net.arch == "resnet":
+            for k in _ARCH_KEYS:
+                del d["net"][k]
+        return json.dumps(d, indent=2, sort_keys=True)
 
     @staticmethod
     def from_json(s: str) -> "RunConfig":
@@ -558,6 +587,9 @@ def _parse_override_value(raw: str, old, optional: bool):
         if raw.lower() not in ("1", "0", "true", "false", "yes", "no"):
             raise ValueError(f"override value {raw!r} is not a boolean")
         return raw.lower() in ("1", "true", "yes")
+    if isinstance(old, tuple):   # "[3, 6, 9]" (a JSON list) or "3,6,9"
+        items = raw.strip().strip("[]()").replace(",", " ").split()
+        return tuple(int(x) for x in items)
     if old is None:  # Optional numeric field (mcts.branch_cap, max_depth)
         for typ in (int, float):
             try:

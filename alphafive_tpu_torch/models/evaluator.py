@@ -17,34 +17,32 @@ import torch
 from alphafive_tpu_torch.config import EnvConfig, NetConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
-from alphafive_tpu_torch.models.resnet import (FusedPolicyValueNet,
-                                               PolicyValueNet)
+from alphafive_tpu_torch.models import nets
 from alphafive_tpu_torch.utils import trace
 
 
 def net_evaluator(env_cfg: EnvConfig, net_cfg: NetConfig, params,
                   batch_stats=None, device="cuda") -> Callable:
-    """Policy-value-net leaf evaluator. ``net_cfg.use_pallas`` selects the
-    fused forward (the resblock kernel on CUDA), as it selects the Pallas
-    forward in the JAX package.
+    """Policy-value-net leaf evaluator of the configured net
+    (``models/nets.py``). ``net_cfg.use_pallas`` selects the fused forward
+    (the port's kernels on CUDA), as it selects the Pallas forward in the
+    JAX package.
 
     `params`/`batch_stats` are flax-layout trees, or `params` is a live
-    ``PolicyValueNet`` (`batch_stats` None): the evaluator is then built
+    training net (`batch_stats` None): the evaluator is then built
     from a snapshot of its weights on its own device (`device` is not
     read), as the JAX iteration rebuilds its evaluator from the learner's
     weights each iteration. The span ``features`` (``utils/trace.py``)
     times the input planes; the net's own spans follow."""
-    if isinstance(params, PolicyValueNet):
+    if isinstance(params, torch.nn.Module):
         if net_cfg.use_pallas:
-            model = FusedPolicyValueNet.from_module(env_cfg, net_cfg, params)
+            model = nets.fused_from_module(env_cfg, net_cfg, params)
         else:
             model = copy.deepcopy(params)
     elif net_cfg.use_pallas:
-        model = FusedPolicyValueNet(env_cfg, net_cfg, params, batch_stats,
-                                    device)
+        model = nets.fused(env_cfg, net_cfg, params, batch_stats, device)
     else:
-        model = PolicyValueNet.from_flax(env_cfg, net_cfg, params,
-                                         batch_stats, device)
+        model = nets.from_flax(env_cfg, net_cfg, params, batch_stats, device)
 
     def evaluate(board, to_play, last):
         with trace.span("features"):

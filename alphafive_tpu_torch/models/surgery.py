@@ -221,8 +221,11 @@ def transfer(variables: Tree, src_env: EnvConfig, src_net: NetConfig,
     """Full surgery, source model → dst preset: widen, deepen, resize.
     `generator` draws for widen then deepen; ``g``/``eps``/``he`` inject
     their draws."""
+    from alphafive_tpu_torch.models.nets import require_resnet
     from alphafive_tpu_torch.models.resnet import init_params
 
+    require_resnet(src_net, "model surgery")
+    require_resnet(dst_net, "model surgery")
     if dst_net.channels < src_net.channels:
         raise ValueError("cannot narrow")
     if dst_net.blocks < src_net.blocks:

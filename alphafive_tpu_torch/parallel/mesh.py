@@ -67,7 +67,7 @@ from alphafive_tpu_torch.config import RunConfig
 from alphafive_tpu_torch.env import vector
 from alphafive_tpu_torch.env.vector import EnvState
 from alphafive_tpu_torch.models.evaluator import net_evaluator
-from alphafive_tpu_torch.models.resnet import PolicyValueNet, init_params
+from alphafive_tpu_torch.models.nets import init_params
 from alphafive_tpu_torch.parallel import distributed
 from alphafive_tpu_torch.replay import buffer as replay_buffer
 from alphafive_tpu_torch.replay.buffer import ReplayBuffer
@@ -154,7 +154,7 @@ def init_carry(cfg: RunConfig, device="cuda", params=None, batch_stats=None,
             seed if rank == 0 else mixed_seed(seed, rank)))
 
 
-def policy_logp(net: PolicyValueNet, features: torch.Tensor) -> torch.Tensor:
+def policy_logp(net: torch.nn.Module, features: torch.Tensor) -> torch.Tensor:
     """Log-policy of the eval-mode forward (running statistics)."""
     return torch.log_softmax(net(features)[0], dim=-1)
 

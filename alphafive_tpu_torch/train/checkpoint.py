@@ -267,7 +267,7 @@ def export_model(directory: str, params, batch_stats, cfg: RunConfig,
     """Write a bundle: ``model.msgpack`` byte-equal to flax's
     ``to_bytes`` of the same trees and ``config.json`` as the JAX package
     writes it. `params`/`batch_stats` are flax-layout trees
-    (``PolicyValueNet.to_flax()``)."""
+    (the training net's ``to_flax()``)."""
     os.makedirs(directory, exist_ok=True)
     payload = {"params": _host_tree(params),
                "batch_stats": _host_tree(batch_stats)}
@@ -527,13 +527,13 @@ def restore_train_state(mgr: CheckpointManager,
     from the checkpoint's own saved config on `device` (``meta.json`` and
     ``model.pt``; no envs, ring or generator). Returns (train_state,
     saved RunConfig)."""
-    from alphafive_tpu_torch.models.resnet import PolicyValueNet
+    from alphafive_tpu_torch.models import nets
     from alphafive_tpu_torch.train import learner
 
     step = _step(mgr, iteration)
     _, cfg, _ = read_meta(mgr, step)
     saved = _load(mgr, step, MODEL, device)
-    net = PolicyValueNet(cfg.env, cfg.net).to(device)
+    net = nets.build(cfg.env, cfg.net, device)
     ts = learner.TrainState(
         net=net, opt_state=learner.init_opt_state(cfg.train,
                                                   list(net.parameters())),

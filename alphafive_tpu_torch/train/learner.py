@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from alphafive_tpu_torch.config import EnvConfig, NetConfig, TrainConfig
-from alphafive_tpu_torch.models.resnet import PolicyValueNet, numpy_tree
+from alphafive_tpu_torch.models import nets
+from alphafive_tpu_torch.models.resnet import numpy_tree
 from alphafive_tpu_torch.utils import trace
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -54,7 +55,7 @@ class OptState:
 
 @dataclasses.dataclass
 class TrainState:
-    net: PolicyValueNet      # params and batch-norm running statistics
+    net: torch.nn.Module     # params and batch-norm running statistics
     opt_state: OptState
     step: int
     lr_scale: torch.Tensor   # f32[] — KL-adaptive lr multiplier
@@ -72,8 +73,7 @@ def init_train_state(env_cfg: EnvConfig, net_cfg: NetConfig,
                      device="cuda") -> TrainState:
     """A fresh train state from flax-layout trees (a bundle's, or
     ``init_params``) on `device`."""
-    net = PolicyValueNet.from_flax(env_cfg, net_cfg, params, batch_stats,
-                                   device)
+    net = nets.from_flax(env_cfg, net_cfg, params, batch_stats, device)
     return TrainState(net=net,
                       opt_state=init_opt_state(train_cfg,
                                                list(net.parameters())),
@@ -100,11 +100,11 @@ def opt_state_to_flax(ts: TrainState) -> Dict:
     return {"count": st.count, "trace": tree(st.mu)}
 
 
-def _l2_of_kernels(net: PolicyValueNet) -> torch.Tensor:
+def _l2_of_kernels(net: torch.nn.Module) -> torch.Tensor:
     return sum(k.float().square().sum() for k in net.kernels())
 
 
-def loss_fn(net: PolicyValueNet, batch, train_cfg: TrainConfig):
+def loss_fn(net: torch.nn.Module, batch, train_cfg: TrainConfig):
     """(loss, (new running statistics, aux)) with autograd on the loss.
     `batch` is (features, pi, z, z_valid[, pi_valid]) as
     ``replay.buffer.sample`` returns it."""

@@ -1,6 +1,7 @@
 """Smoke check of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase
+    python3 chip_smoke.py katago_nbt   # the nested-bottleneck kernels only
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain PyTorch version on the card and times it beside
@@ -76,6 +77,16 @@ the entry points a user calls:
   tree (2,048 envs): every pass's descent and every result bit-equal,
   graphs captured in each shape's first search only, every graphed step
   a replay.
+
+* KataGo's nested-bottleneck kernels (``katago_nbt``, last):
+  ``ops/katago_nbt.py``'s ``preact_pair``, ``gpool_pair`` and the two
+  ``conv1x1`` shapes at b18c384nbt's widths on 19×19 boards, at the
+  batches the program evaluates (4,096 and 512 in self-play, 8 and 1 in
+  play), each against its plain twin, with device ms by graph replay, the
+  bound and the share, and cuDNN's time for the same convolutions
+  (``library_ms``, the yardstick); then the fused net through the
+  kernels against the net through the twins at batches 8 and 512, with
+  the launches a forward counts (31, 5 and 36).
 
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
@@ -2618,6 +2629,115 @@ def general_search(card: str) -> dict:
     return dict(counts, fails=fails)
 
 
+NBT_BATCHES = (4096, 512, 8, 1)   # renju self-play leaves, root; play
+
+
+def phase_katago_nbt(card: str) -> list:
+    """ops/katago_nbt.py's kernels against their plain twins at
+    b18c384nbt's widths (trunk 384, mid 192, 64 pooled) on 19×19: the
+    largest error relative to the twin's largest output, device ms (graph
+    replay), host µs a call, the twin's eager ms, the bound and share,
+    and cuDNN's ms for the same convolutions (channels-last, no prologue
+    or epilogue). Then the fused net through the kernels against it
+    through the twins, and the launches of one forward."""
+    from alphafive_tpu_torch.config import EnvConfig, NetConfig
+    from alphafive_tpu_torch.models import nets
+    from alphafive_tpu_torch.ops import katago_nbt as nbt
+    g = torch.Generator(device="cuda").manual_seed(23)
+    m, c, gp, side = 192, 384, 64, 19
+    cr = m - gp
+    rnd = lambda *sh, s=1.0: torch.randn(*sh, device="cuda", generator=g) * s
+    aff = lambda n, bias=0.0: (1 + 0.1 * rnd(n), bias + 0.2 * rnd(n))
+    he = lambda k, i, o: nbt.pack_conv(rnd(k, k, i, o, s=(2 / (k * k * i))
+                                           ** 0.5)).bfloat16()
+    oihw = lambda w, k: w.reshape(w.shape[0], k, k, -1).permute(
+        0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    conv = torch.nn.functional.conv2d
+    a1, a2, ag, a2r = aff(m, 0.5), aff(m), aff(gp), aff(cr, 0.2)
+    ap, aq = aff(c, 0.3), aff(m)
+    w1, w2, wg1, wg2 = he(3, m, m), he(3, m, m), he(3, m, m), he(3, cr, m)
+    wl = rnd(3 * gp, cr, s=(3 * gp) ** -0.5)
+    wp, wq = he(1, c, m), he(1, m, c)
+    pos = lambda b: b * side * side
+    rows = []
+    for b in NBT_BATCHES:
+        h = rnd(b, side, side, m).bfloat16()
+        x = rnd(b, side, side, c).bfloat16()
+        hc, xc = h.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
+        pair_f = 2 * 2 * pos(b) * 9 * m * m
+        cases = [
+            ("preact_pair",
+             lambda: nbt.preact_pair(h, *a1, w1, *a2, w2),
+             lambda: nbt.preact_pair_reference(h, *a1, w1, *a2, w2),
+             lambda: conv(conv(hc, oihw(w1, 3), padding=1), oihw(w2, 3),
+                          padding=1),
+             pair_f, 4 * pos(b) * m + 4 * 9 * m * m),
+            ("gpool_pair",
+             lambda: nbt.gpool_pair(h, *a1, wg1, *ag, wl, *a2r, wg2),
+             lambda: nbt.gpool_pair_reference(h, *a1, wg1, *ag, wl, *a2r,
+                                              wg2),
+             lambda: conv(conv(hc, oihw(wg1, 3), padding=1)[:, :cr],
+                          oihw(wg2, 3), padding=1),
+             2 * pos(b) * 9 * m * (m + cr) + 2 * b * 3 * gp * cr,
+             4 * pos(b) * m + 2 * 9 * m * (m + cr)),
+            ("conv1x1_down",
+             lambda: nbt.conv1x1(x, *ap, wp),
+             lambda: nbt.conv1x1_reference(x, *ap, wp),
+             lambda: conv(xc, oihw(wp, 1)),
+             2 * pos(b) * c * m, 2 * pos(b) * (c + m) + 2 * c * m),
+            ("conv1x1_up",
+             lambda: nbt.conv1x1(h, *aq, wq, residual=x),
+             lambda: nbt.conv1x1_reference(h, *aq, wq, residual=x),
+             lambda: conv(hc, oihw(wq, 1)),
+             2 * pos(b) * c * m, 2 * pos(b) * (m + 2 * c) + 2 * c * m)]
+        for name, kernel, plain, library, flops, nbytes in cases:
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err = float((got.float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            row = dict(kernel=name, batch=b, board=side, channels=[c, m, gp],
+                       max_abs_err=err, rel_err=err / scale)
+            timed(row, kernel, plain)
+            row["library_ms"], _ = timing.graph_ms(library)
+            row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
+                                                     torch.bfloat16)
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            # bf16 outputs, f32 sums in another order: one or two ulps
+            if row["rel_err"] > 1e-2:
+                raise AssertionError(f"katago_nbt {name} at {b}: {row}")
+            emit("katago_nbt", **row)
+            rows.append(row)
+        del h, x, hc, xc, cases
+        torch.cuda.empty_cache()
+    env = EnvConfig(board_size=side)
+    net = NetConfig(arch="katago_nbt", blocks=18, channels=c,
+                    mid_channels=m, gpool_channels=gp, head_channels=32,
+                    value_hidden=128, use_pallas=True)
+    params, stats = nets.init_params(env, net, 0)
+    fused = nets.fused(env, net, params, stats, "cuda")
+    plain = nets.fused(env, net, params, stats, "cuda", plain=True)
+    for b in (8, 512):
+        feats = (torch.rand(b, side, side, 4, device="cuda",
+                            generator=g) < 0.2).float()
+        before = trace.snapshot()["counters"]
+        logits, value = fused(feats)
+        torch.cuda.synchronize()
+        after = trace.snapshot()["counters"]
+        want = plain(feats)
+        launches = {k: after.get(f"nbt_launches.{k}", 0)
+                    - before.get(f"nbt_launches.{k}", 0) for k in nbt.KERNELS}
+        row = dict(net="b18c384nbt", batch=b, launches=launches,
+                   resblock_launches=after.get("resblock_launches", 0)
+                   - before.get("resblock_launches", 0),
+                   logits_max_abs_err=float((logits - want[0]).abs().max()),
+                   value_max_abs_err=float((value - want[1]).abs().max()))
+        emit("katago_nbt_net", **row)
+        if launches != {"preact_pair": 31, "gpool_pair": 5, "conv1x1": 36}:
+            raise AssertionError(f"katago_nbt forward launches {row}")
+    return rows
+
+
 def phase_general_shapes(card: str) -> dict:
     """The shapes only the general resblock variant and the select
     kernel's streaming path take, through the entry points: tiny_test's
@@ -2643,6 +2763,13 @@ def main() -> int:
     t0 = time.time()
     card = phase_device()
     plib = phase_build()
+    if sys.argv[1:] == ["katago_nbt"]:
+        phase_katago_nbt(card)
+        emit("total", seconds=time.time() - t0)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": card,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     latency = phase_select_latency(plib)
     rows = phase_kernel_vs_plain()
     pack_rows = phase_pack_taps_vs_plain()
@@ -2680,6 +2807,7 @@ def main() -> int:
     phase_search_packed(card)
     sel_launches = phase_eval(card)
     general = phase_general_shapes(card)
+    phase_katago_nbt(card)
     emit("total", seconds=time.time() - t0)
     # the resblock's self-play shape; the select kernel's cli eval shape
     main_row = rows[0]

@@ -1,0 +1,12 @@
+"""nbt_pair_roofline.selfplay (%): the least time of the work of
+ops/katago_nbt.py::preact_pair that the configuration needs (calls a forward x
+positions, from shapes: archs/katago_nbt.py::kernel_work) over the device
+time launched inside the benchmark's span `nbt_pair` around it, in the
+profiled sub-window.
+"""
+
+from perfbench import readers
+
+
+def read(run):
+    return readers.roofline(run, "nbt_pair")
