@@ -91,7 +91,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.alphafive_resblock_variant.argtypes = [i32] * 5
     lib.alphafive_nbt_conv.restype = i32
     lib.alphafive_nbt_conv.argtypes = ([ptr, i32, ptr, ptr, ptr, i32, ptr, ptr,
-                                        i32, ptr, ptr] + [i32] * 7 + [ptr])
+                                        i32, ptr, ptr] + [i32] * 8 + [ptr])
     lib.alphafive_nbt_pool.restype = i32
     lib.alphafive_nbt_pool.argtypes = [ptr] + [i32] * 5 + [f32] + [ptr] * 5
     lib.alphafive_select.restype = i32

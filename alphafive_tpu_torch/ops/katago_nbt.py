@@ -22,10 +22,19 @@ attributes, so that a wrapper installed on the module sees every call.
 * ``conv1x1(x, …)``: conv_1(A(x); W) [+ residual], one launch: the
   bottleneck 384 → 192 and back. Bound by HBM (64 FLOP a byte).
 
+Each convolution runs one of two mainloops of the kernel, picked by shape
+(`conv_variant`): ``wgmma3x3`` (the 3×3s at 192 output channels: one slab
+of the activated input a channel chunk, ``wgmma`` fed by a warp-specialised
+producer) or ``mma`` (the 1×1s and every other shape: ``mma.sync`` over a
+``cp.async`` ring).
+``preact_pair_as`` and ``gpool_pair_as`` run a named mainloop, for timing.
+
 Counters (``utils/trace.py``): ``nbt_launches.<entry point>``, one a call
 on CUDA tensors (0 on the CPU), readable as the module attribute
-``nbt_launches`` (a dict by entry point). Span ``gpool``: the pooling
-pair's reduction and dense layer.
+``nbt_launches`` (a dict by entry point); ``nbt_conv_launches.<variant>``,
+one a convolution launched, by mainloop, readable as
+``nbt_conv_launches``. Span ``gpool``: the pooling pair's reduction and
+dense layer.
 """
 
 from __future__ import annotations
@@ -36,12 +45,33 @@ import torch.nn.functional as F
 from alphafive_tpu_torch.utils import trace
 
 KERNELS = ("preact_pair", "gpool_pair", "conv1x1")
+VARIANTS = ("wgmma3x3", "mma")  # the mainloops, csrc/katago_nbt.cu's enum
+_CODES = {"mma": 0, "wgmma3x3": 1}  # Variant codes
+
+# wg::kMaxWidth (csrc/katago_nbt.cu): the widest board whose slabs fit
+WG_MAX_WIDTH = 110
+
+
+def conv_variant(ks: int, cin: int, cout: int, w: int) -> str:
+    """The mainloop a convolution takes: ``wgmma3x3`` for a 3×3 of 128 or
+    192 input channels to 192 on a board at most `WG_MAX_WIDTH` wide,
+    else ``mma``. Raises ValueError for a shape neither takes."""
+    if ks not in (1, 3) or cin <= 0 or cout <= 0 or cin % 64 or cout % 64:
+        raise ValueError(f"katago_nbt conv does not take cin {cin}, cout "
+                         f"{cout}, {ks}x{ks}: it takes 1x1 and 3x3 with cin "
+                         f"and cout multiples of 64")
+    if ks == 3 and cin in (128, 192) and cout == 192 and w <= WG_MAX_WIDTH:
+        return "wgmma3x3"
+    return "mma"
 
 
 def __getattr__(name: str):
-    """``nbt_launches`` (a dict by entry point): views of the counters."""
+    """``nbt_launches`` (a dict by entry point), ``nbt_conv_launches`` (by
+    mainloop): views of the counters."""
     if name == "nbt_launches":
         return {k: trace.counter("nbt_launches." + k) for k in KERNELS}
+    if name == "nbt_conv_launches":
+        return {k: trace.counter("nbt_conv_launches." + k) for k in VARIANTS}
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -132,10 +162,11 @@ def _check(x, *tensors) -> None:
 
 
 def _launch_conv(lib, x, ldx, cin, w, out, pro=None, shift_stride=0,
-                 epi=None, relu_from=None, res=None) -> None:
+                 epi=None, relu_from=None, res=None, variant=None) -> None:
     """One ``alphafive_nbt_conv``: `x` rows of `ldx` elements, the first
     `cin` read; `pro` = (scale, shift) of the prologue, `epi` = (scale,
-    shift) of the epilogue."""
+    shift) of the epilogue; `variant` a mainloop of `VARIANTS` (timing),
+    or None: the shape's (`conv_variant`), counted."""
     b, h, w_, _ = out.shape
     cout = out.shape[-1]
     if w.dtype != torch.bfloat16 or w.shape[0] != cout:
@@ -145,19 +176,25 @@ def _launch_conv(lib, x, ldx, cin, w, out, pro=None, shift_stride=0,
     if ks is None:
         raise ValueError(f"packed weights {tuple(w.shape)} are not 1x1 or "
                          f"3x3 over {cin} channels")
+    chosen = conv_variant(ks, cin, cout, w_)
     ps, pt = pro if pro is not None else (None, None)
     es, et = epi if epi is not None else (None, None)
     err = lib.alphafive_nbt_conv(
         x.data_ptr(), ldx, w.data_ptr(), _ptr(ps), _ptr(pt), shift_stride,
         _ptr(es), _ptr(et), cout if relu_from is None else relu_from,
         _ptr(res), out.data_ptr(), b * h * w_, h * w_, h, w_, cin, cout, ks,
-        torch.cuda.current_stream().cuda_stream)
+        _CODES[variant or chosen], torch.cuda.current_stream().cuda_stream)
     if err == 1:
-        raise ValueError(f"katago_nbt conv does not take cin {cin}, cout "
-                         f"{cout}, {ks}x{ks} (cin a multiple of 32, cout "
-                         f"of 64)")
+        raise ValueError(
+            f"katago_nbt conv: mainloop {variant or chosen} does not take "
+            f"cin {cin} of rows of {ldx}, cout {cout}, {ks}x{ks}, a "
+            f"{w_}-wide board (both: cin and cout multiples of 64, rows "
+            f"of a multiple of 8; wgmma3x3 also: 3x3, cin 128 or 192, cout "
+            f"192, boards at most {WG_MAX_WIDTH} wide)")
     if err != 0:
         raise RuntimeError(f"katago_nbt conv launch failed: CUDA error {err}")
+    if variant is None:
+        trace.count("nbt_conv_launches." + chosen)
 
 
 def _device(x) -> bool:
@@ -174,6 +211,19 @@ def preact_pair(h, s1, t1, w1, s2, t2, w2) -> torch.Tensor:
     s*/t* f32 [M]; w1, w2 packed [M, 9M] bf16."""
     if not _device(h):
         return preact_pair_reference(h, s1, t1, w1, s2, t2, w2)
+    out = _preact_pair(None, h, s1, t1, w1, s2, t2, w2)
+    trace.count("nbt_launches.preact_pair")
+    return out
+
+
+def preact_pair_as(variant, h, s1, t1, w1, s2, t2, w2) -> torch.Tensor:
+    """`preact_pair` on CUDA tensors with both convs on the mainloop
+    `variant` (of `VARIANTS`), whatever the shape's: timing only, counts
+    nothing."""
+    return _preact_pair(variant, h, s1, t1, w1, s2, t2, w2)
+
+
+def _preact_pair(variant, h, s1, t1, w1, s2, t2, w2) -> torch.Tensor:
     _check(h, s1, t1, w1, s2, t2, w2)
     from alphafive_tpu_torch.ops import _build
     lib = _build.load()
@@ -181,10 +231,9 @@ def preact_pair(h, s1, t1, w1, s2, t2, w2) -> torch.Tensor:
     with torch.cuda.device(h.device):
         y = torch.empty_like(h)
         _launch_conv(lib, h, m, m, w1, y, pro=(s1, t1), epi=(s2, t2),
-                     relu_from=0)
+                     relu_from=0, variant=variant)
         out = torch.empty_like(h)
-        _launch_conv(lib, y, m, m, w2, out, res=h)
-    trace.count("nbt_launches.preact_pair")
+        _launch_conv(lib, y, m, m, w2, out, res=h, variant=variant)
     return out
 
 
@@ -195,6 +244,20 @@ def gpool_pair(h, s1, t1, w1, sg, tg, wl, s2, t2, w2) -> torch.Tensor:
     sg/tg f32 [G]; wl f32 [3G, Cr]; s2/t2 f32 [Cr]; w2 packed [M, 9Cr]."""
     if not _device(h):
         return gpool_pair_reference(h, s1, t1, w1, sg, tg, wl, s2, t2, w2)
+    out = _gpool_pair(None, h, s1, t1, w1, sg, tg, wl, s2, t2, w2)
+    trace.count("nbt_launches.gpool_pair")
+    return out
+
+
+def gpool_pair_as(variant, h, s1, t1, w1, sg, tg, wl, s2, t2,
+                  w2) -> torch.Tensor:
+    """`gpool_pair` on CUDA tensors with both convs on the mainloop
+    `variant`: timing only, counts nothing."""
+    return _gpool_pair(variant, h, s1, t1, w1, sg, tg, wl, s2, t2, w2)
+
+
+def _gpool_pair(variant, h, s1, t1, w1, sg, tg, wl, s2, t2,
+                w2) -> torch.Tensor:
     _check(h, s1, t1, w1, sg, tg, wl, s2, t2, w2)
     from alphafive_tpu_torch.ops import _build
     lib = _build.load()
@@ -207,7 +270,7 @@ def gpool_pair(h, s1, t1, w1, sg, tg, wl, s2, t2, w2) -> torch.Tensor:
         rg = torch.empty((b, side, side2, cr + cg), dtype=h.dtype,
                          device=h.device)
         _launch_conv(lib, h, m, m, w1, rg, pro=(s1, t1), epi=(es, et),
-                     relu_from=cr)
+                     relu_from=cr, variant=variant)
         shift = torch.empty((b, cr), dtype=torch.float32, device=h.device)
         with trace.span("gpool"):
             err = lib.alphafive_nbt_pool(
@@ -220,8 +283,7 @@ def gpool_pair(h, s1, t1, w1, sg, tg, wl, s2, t2, w2) -> torch.Tensor:
                                f"{err}")
         out = torch.empty_like(h)
         _launch_conv(lib, rg, cr + cg, cr, w2, out, pro=(s2, shift),
-                     shift_stride=cr, res=h)
-    trace.count("nbt_launches.gpool_pair")
+                     shift_stride=cr, res=h, variant=variant)
     return out
 
 

@@ -82,11 +82,16 @@ the entry points a user calls:
   ``ops/katago_nbt.py``'s ``preact_pair``, ``gpool_pair`` and the two
   ``conv1x1`` shapes at b18c384nbt's widths on 19×19 boards, at the
   batches the program evaluates (4,096 and 512 in self-play, 8 and 1 in
-  play), each against its plain twin, with device ms by graph replay, the
-  bound and the share, and cuDNN's time for the same convolutions
+  play), a ragged batch (3) and 15×15, and the pooling pair's second
+  conv alone (cin 128 of rows of 192, a per-sample shift), each against
+  its plain twin within 1% of the twin's largest output (one bf16 ulp of
+  it is 0.39-0.78%), with the mainloop each 3×3 takes, device ms by
+  graph replay, the 3×3s' ms on the mma.sync mainloop (``before_ms``),
+  the bound and the share, and cuDNN's time for the same convolutions
   (``library_ms``, the yardstick); then the fused net through the
-  kernels against the net through the twins at batches 8 and 512, with
-  the launches a forward counts (31, 5 and 36).
+  kernels against the net through the twins at batches 8, 512 and
+  4,096, with the launches a forward counts (31, 5 and 36 by entry
+  point; 72 on the wgmma mainloop, 36 on mma.sync).
 
 Before the eval, the packed search itself is run with the kernel and with
 the plain descent and against the full-width search. Each phase prints one
@@ -2630,21 +2635,32 @@ def general_search(card: str) -> dict:
 
 
 NBT_BATCHES = (4096, 512, 8, 1)   # renju self-play leaves, root; play
+# beside them: a ragged batch (3 × 19×19 = 1,083 positions) and 15×15
+NBT_EXTRA = ((3, 19), (512, 15))
 
 
 def phase_katago_nbt(card: str) -> list:
     """ops/katago_nbt.py's kernels against their plain twins at
-    b18c384nbt's widths (trunk 384, mid 192, 64 pooled) on 19×19: the
-    largest error relative to the twin's largest output, device ms (graph
-    replay), host µs a call, the twin's eager ms, the bound and share,
-    and cuDNN's ms for the same convolutions (channels-last, no prologue
-    or epilogue). Then the fused net through the kernels against it
-    through the twins, and the launches of one forward."""
+    b18c384nbt's widths (trunk 384, mid 192, 64 pooled) on 19×19, a
+    ragged batch and 15×15: the mainloop each 3×3 takes, the largest
+    error relative to the twin's largest output, device ms (graph replay)
+    and the 3×3s' ms on the mma.sync mainloop they ran before
+    (``before_ms``), host µs a call, the twin's eager ms, the bound and
+    share, and cuDNN's ms for the same convolutions (channels-last, no
+    prologue or epilogue); the 3×3s' error on the mma.sync mainloop too
+    (``before_rel_err``), and each error in bf16 ulps of the twin's
+    largest output (``ulps``). ``gpool_conv2`` is the pooling pair's second
+    conv alone (cin 128 of rows of 192, a per-sample prologue shift, +
+    h). Then the fused net through the kernels against it through the
+    twins, and the launches of one forward by entry point and by
+    mainloop."""
     from alphafive_tpu_torch.config import EnvConfig, NetConfig
     from alphafive_tpu_torch.models import nets
+    from alphafive_tpu_torch.ops import _build
     from alphafive_tpu_torch.ops import katago_nbt as nbt
+    lib = _build.load()
     g = torch.Generator(device="cuda").manual_seed(23)
-    m, c, gp, side = 192, 384, 64, 19
+    m, c, gp = 192, 384, 64
     cr = m - gp
     rnd = lambda *sh, s=1.0: torch.randn(*sh, device="cuda", generator=g) * s
     aff = lambda n, bias=0.0: (1 + 0.1 * rnd(n), bias + 0.2 * rnd(n))
@@ -2658,83 +2674,128 @@ def phase_katago_nbt(card: str) -> list:
     w1, w2, wg1, wg2 = he(3, m, m), he(3, m, m), he(3, m, m), he(3, cr, m)
     wl = rnd(3 * gp, cr, s=(3 * gp) ** -0.5)
     wp, wq = he(1, c, m), he(1, m, c)
-    pos = lambda b: b * side * side
+
+    def conv2(h, rg, shift, variant=None):
+        out = torch.empty_like(h)
+        nbt._launch_conv(lib, rg, m, cr, wg2, out, pro=(a2r[0], shift),
+                         shift_stride=cr, res=h, variant=variant)
+        return out
+
+    def conv2_plain(h, rg, shift):
+        v = nbt._prologue(rg[..., :cr], a2r[0], shift)
+        return (nbt._conv(v, wg2) + h.float()).to(h.dtype)
+
     rows = []
-    for b in NBT_BATCHES:
+    for b, side in [(b, 19) for b in NBT_BATCHES] + list(NBT_EXTRA):
+        pos = b * side * side
         h = rnd(b, side, side, m).bfloat16()
         x = rnd(b, side, side, c).bfloat16()
+        rg = rnd(b, side, side, m).bfloat16()
+        shift = 0.2 + 0.2 * rnd(b, cr)
         hc, xc = h.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2)
-        pair_f = 2 * 2 * pos(b) * 9 * m * m
+        pair_f = 2 * 2 * pos * 9 * m * m
         cases = [
             ("preact_pair",
              lambda: nbt.preact_pair(h, *a1, w1, *a2, w2),
              lambda: nbt.preact_pair_reference(h, *a1, w1, *a2, w2),
+             lambda: nbt.preact_pair_as("mma", h, *a1, w1, *a2, w2),
              lambda: conv(conv(hc, oihw(w1, 3), padding=1), oihw(w2, 3),
                           padding=1),
-             pair_f, 4 * pos(b) * m + 4 * 9 * m * m),
+             pair_f, 4 * pos * m + 4 * 9 * m * m),
             ("gpool_pair",
              lambda: nbt.gpool_pair(h, *a1, wg1, *ag, wl, *a2r, wg2),
              lambda: nbt.gpool_pair_reference(h, *a1, wg1, *ag, wl, *a2r,
                                               wg2),
+             lambda: nbt.gpool_pair_as("mma", h, *a1, wg1, *ag, wl, *a2r,
+                                       wg2),
              lambda: conv(conv(hc, oihw(wg1, 3), padding=1)[:, :cr],
                           oihw(wg2, 3), padding=1),
-             2 * pos(b) * 9 * m * (m + cr) + 2 * b * 3 * gp * cr,
-             4 * pos(b) * m + 2 * 9 * m * (m + cr)),
-            ("conv1x1_down",
-             lambda: nbt.conv1x1(x, *ap, wp),
-             lambda: nbt.conv1x1_reference(x, *ap, wp),
-             lambda: conv(xc, oihw(wp, 1)),
-             2 * pos(b) * c * m, 2 * pos(b) * (c + m) + 2 * c * m),
-            ("conv1x1_up",
-             lambda: nbt.conv1x1(h, *aq, wq, residual=x),
-             lambda: nbt.conv1x1_reference(h, *aq, wq, residual=x),
-             lambda: conv(hc, oihw(wq, 1)),
-             2 * pos(b) * c * m, 2 * pos(b) * (m + 2 * c) + 2 * c * m)]
-        for name, kernel, plain, library, flops, nbytes in cases:
+             2 * pos * 9 * m * (m + cr) + 2 * b * 3 * gp * cr,
+             4 * pos * m + 2 * 9 * m * (m + cr))]
+        if side == 19 and b in NBT_BATCHES:
+            rgc = rg.permute(0, 3, 1, 2)[:, :cr]
+            cases += [
+                ("gpool_conv2",
+                 lambda: conv2(h, rg, shift),
+                 lambda: conv2_plain(h, rg, shift),
+                 lambda: conv2(h, rg, shift, "mma"),
+                 lambda: conv(rgc, oihw(wg2, 3), padding=1),
+                 2 * pos * 9 * cr * m, 2 * pos * (cr + 2 * m) + 2 * 9 * cr * m),
+                ("conv1x1_down",
+                 lambda: nbt.conv1x1(x, *ap, wp),
+                 lambda: nbt.conv1x1_reference(x, *ap, wp),
+                 None,
+                 lambda: conv(xc, oihw(wp, 1)),
+                 2 * pos * c * m, 2 * pos * (c + m) + 2 * c * m),
+                ("conv1x1_up",
+                 lambda: nbt.conv1x1(h, *aq, wq, residual=x),
+                 lambda: nbt.conv1x1_reference(h, *aq, wq, residual=x),
+                 None,
+                 lambda: conv(hc, oihw(wq, 1)),
+                 2 * pos * c * m, 2 * pos * (m + 2 * c) + 2 * c * m)]
+        for name, kernel, plain, before, library, flops, nbytes in cases:
             got = kernel()
             torch.cuda.synchronize()
             want = plain()
             err = float((got.float() - want.float()).abs().max())
             scale = float(want.float().abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+            cin = cr if name == "gpool_conv2" else m
+            variant = ("mma" if name.startswith("conv1x1")
+                       else nbt.conv_variant(3, cin, m, side))
             row = dict(kernel=name, batch=b, board=side, channels=[c, m, gp],
-                       max_abs_err=err, rel_err=err / scale)
+                       variant=variant, max_abs_err=err, rel_err=err / scale,
+                       ulps=err / ulp)
+            if before is not None:
+                old = before()
+                torch.cuda.synchronize()
+                row["before_rel_err"] = float(
+                    (old.float() - want.float()).abs().max()) / scale
+                del old
             timed(row, kernel, plain)
+            if before is not None:
+                row["before_ms"], _ = timing.graph_ms(before)
             row["library_ms"], _ = timing.graph_ms(library)
             row["bound_ms"], row["bound_by"] = bound(flops, nbytes,
                                                      torch.bfloat16)
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             # bf16 outputs, f32 sums in another order: one or two ulps
+            # (one ulp of the largest output is 0.39-0.78% of it)
             if row["rel_err"] > 1e-2:
                 raise AssertionError(f"katago_nbt {name} at {b}: {row}")
             emit("katago_nbt", **row)
             rows.append(row)
-        del h, x, hc, xc, cases
+        del h, x, rg, hc, xc, cases
         torch.cuda.empty_cache()
-    env = EnvConfig(board_size=side)
+    env = EnvConfig(board_size=19)
     net = NetConfig(arch="katago_nbt", blocks=18, channels=c,
                     mid_channels=m, gpool_channels=gp, head_channels=32,
                     value_hidden=128, use_pallas=True)
     params, stats = nets.init_params(env, net, 0)
     fused = nets.fused(env, net, params, stats, "cuda")
     plain = nets.fused(env, net, params, stats, "cuda", plain=True)
-    for b in (8, 512):
-        feats = (torch.rand(b, side, side, 4, device="cuda",
+    for b in (8, 512, 4096):
+        feats = (torch.rand(b, 19, 19, 4, device="cuda",
                             generator=g) < 0.2).float()
         before = trace.snapshot()["counters"]
         logits, value = fused(feats)
         torch.cuda.synchronize()
         after = trace.snapshot()["counters"]
         want = plain(feats)
-        launches = {k: after.get(f"nbt_launches.{k}", 0)
-                    - before.get(f"nbt_launches.{k}", 0) for k in nbt.KERNELS}
+        delta = lambda k: after.get(k, 0) - before.get(k, 0)
+        launches = {k: delta(f"nbt_launches.{k}") for k in nbt.KERNELS}
+        by_loop = {k: delta(f"nbt_conv_launches.{k}") for k in nbt.VARIANTS}
         row = dict(net="b18c384nbt", batch=b, launches=launches,
-                   resblock_launches=after.get("resblock_launches", 0)
-                   - before.get("resblock_launches", 0),
+                   conv_launches=by_loop,
+                   resblock_launches=delta("resblock_launches"),
                    logits_max_abs_err=float((logits - want[0]).abs().max()),
                    value_max_abs_err=float((value - want[1]).abs().max()))
         emit("katago_nbt_net", **row)
-        if launches != {"preact_pair": 31, "gpool_pair": 5, "conv1x1": 36}:
+        if (launches != {"preact_pair": 31, "gpool_pair": 5, "conv1x1": 36}
+                or by_loop != {"wgmma3x3": 72, "mma": 36}):
             raise AssertionError(f"katago_nbt forward launches {row}")
+        del feats, logits, value, want
+        torch.cuda.empty_cache()
     return rows
 
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 import builtins
 import importlib.util
 import os
+import re
 
 import numpy as np
 import pytest
@@ -174,6 +175,171 @@ def test_twins_count_no_launch_on_the_cpu(operands):
         trace.disable()
     assert ops.nbt_launches == {k: 0 for k in ops.KERNELS}
     assert spans["gpool"]["calls"] == 1
+
+
+# --- the mainloops: the host's choice, refusals, counters, the tiling -----
+
+CU = os.path.join(ROOT, "alphafive_tpu_torch", "csrc", "katago_nbt.cu")
+
+
+def wg_constants() -> dict:
+    """csrc/katago_nbt.cu's namespace wg constants that are plain numbers."""
+    with open(CU) as f:
+        src = f.read()
+    wg = src[src.index("namespace wg {"):]
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", wg)}
+
+
+def test_wg_mirrors_match_the_source():
+    """ops' mirror of wg::kMaxWidth (the widest board whose slabs fit,
+    which decides the mainloop) and of the mainloop codes is the
+    source's."""
+    c = wg_constants()
+    with open(CU) as f:
+        src = f.read()
+    assert "return (kBM + 2 * w + 4 + 7) / 8 * 8;" in src
+    assert ("return 1024 + kStages * kStageBytes + kSlabs * slab_rows(w) * "
+            "128 +\n         2 * (kStages + kSlabs) * 8 + 2 * kBN * 4;") in src
+    assert "constexpr int kStageBytes = kBN * kBK * 2;" in src
+    assert "constexpr int kBM = 64 * kConsumers;" in src
+    bm = 64 * c["kConsumers"]
+    smem = lambda w: (1024 + c["kStages"] * c["kBN"] * c["kBK"] * 2
+                      + c["kSlabs"] * ((bm + 2 * w + 4 + 7) // 8 * 8) * 128
+                      + 2 * (c["kStages"] + c["kSlabs"]) * 8 + 2 * c["kBN"] * 4)
+    assert smem(ops.WG_MAX_WIDTH) <= c["kSmemLimit"]
+    assert smem(ops.WG_MAX_WIDTH + 1) > c["kSmemLimit"]
+    assert ("return ks == 3 && (cin == 128 || cin == 192) && cout == kBN &&"
+            in src and c["kBN"] == 192)
+    enum = re.search(r"enum Variant \{([^}]*)\}", src).group(1)
+    codes = dict((k.strip(), int(v)) for k, v in
+                 (e.split("=") for e in enum.split(",")))
+    assert codes == {"kMma": ops._CODES["mma"],
+                     "kWgmma": ops._CODES["wgmma3x3"]}
+
+
+@pytest.mark.parametrize("ks, cin, cout, width, want", [
+    (3, 192, 192, 19, "wgmma3x3"),     # preact_pair's convs, gpool conv 1
+    (3, 128, 192, 19, "wgmma3x3"),     # gpool conv 2 (ldx 192)
+    (3, 192, 192, 15, "wgmma3x3"),
+    (3, 192, 192, 110, "wgmma3x3"),    # the widest board that fits
+    (3, 192, 192, 111, "mma"),
+    (3, 192, 384, 19, "mma"),          # one n-tile of 192 only
+    (3, 64, 192, 19, "mma"),           # one chunk: not instantiated
+    (3, 256, 192, 19, "mma"),
+    (3, 192, 64, 19, "mma"),           # cout 64
+    (1, 384, 192, 19, "mma"),          # the bottleneck 1x1s
+    (1, 192, 384, 19, "mma"),
+])
+def test_conv_variant_by_shape(ks, cin, cout, width, want):
+    """The mainloop depends on the shape alone; the batch does not
+    matter (every batch of a b18c384nbt forward runs the same)."""
+    assert ops.conv_variant(ks, cin, cout, width) == want
+
+
+@pytest.mark.parametrize("ks, cin, cout", [(3, 96, 192), (3, 192, 96),
+                                           (1, 32, 64), (5, 192, 192),
+                                           (3, 0, 192)])
+def test_conv_variant_refuses_what_no_mainloop_takes(ks, cin, cout):
+    with pytest.raises(ValueError, match="cin and cout multiples of 64"):
+        ops.conv_variant(ks, cin, cout, 19)
+
+
+def test_conv_counters_by_mainloop_are_zero_on_the_cpu(operands):
+    """``nbt_conv_launches.<variant>`` counts kernel launches by mainloop:
+    none for the twins."""
+    o = operands
+    trace.reset()
+    ops.preact_pair(o["h"], *o["a1"], ops.pack_conv(o["w1"]), *o["a2"],
+                    ops.pack_conv(o["w2"]))
+    ops.conv1x1(o["x"], *o["ap"], ops.pack_conv(o["wp"]))
+    assert ops.VARIANTS == ("wgmma3x3", "mma")
+    assert ops.nbt_conv_launches == {"wgmma3x3": 0, "mma": 0}
+    assert not any(k.startswith("nbt_conv_launches.")
+                   for k in trace.snapshot()["counters"])
+
+
+def wg_emulate(x, ldx, cin, w, cout, pro=None, shift_stride=0, epi=None,
+               relu_from=None, res=None):
+    """wg::conv3x3 on the CPU, by the kernel's own index arithmetic (the
+    tiles, the slab's grid rows and zeros, the taps' row offsets, the
+    epilogue's grid rows), in f32 from bf16 operands."""
+    b, h, wd, _ = x.shape
+    bm, bn = 192, 192
+    pitch, rows = wd + 1, bm + 2 * wd + 4
+    parts = (h * pitch + bm - 1) // bm
+    tiles = b * parts
+    xf = x.reshape(b * h * wd, ldx)[:, :cin].float()
+    wt = w.float().reshape(cout, 9, cin)
+    out = torch.full((b * h * wd, cout), float("nan"))
+    for i in range(tiles):
+        sb, part = i // parts, i % parts
+        q0 = part * bm - pitch - 1
+        slab = torch.zeros(rows, cin)
+        for r in range(rows):
+            q = q0 + r
+            y = q // pitch if q >= 0 else -1
+            if q >= 0 and y < h and q - y * pitch < wd:
+                v = xf[sb * h * wd + q - y]
+                if pro is not None:
+                    sh = pro[1].reshape(-1)[sb * shift_stride:][:cin]
+                    v = torch.relu(v * pro[0] + sh).to(x.dtype).float()
+                slab[r] = v
+        acc = torch.zeros(bm, bn)
+        for tap in range(9):
+            off = (tap // 3) * pitch + tap % 3
+            acc += slab[off:off + bm] @ wt[:, tap].T
+        for o in range(bm):
+            g = part * bm + o
+            y, xx = g // pitch, g % pitch
+            if y >= h or xx >= wd:
+                continue
+            pos = sb * h * wd + y * wd + xx
+            v = acc[o]
+            if epi is not None:
+                v = v * epi[0] + epi[1]
+            rf = cout if relu_from is None else relu_from
+            v = torch.where(torch.arange(bn) >= rf, torch.relu(v), v)
+            if res is not None:
+                v = v + res.reshape(-1, cout)[pos].float()
+            out[pos] = v
+    return out.to(x.dtype).reshape(b, h, wd, cout)
+
+
+@pytest.mark.parametrize("b, side, cin, ldx, cout, per_sample", [
+    (2, 19, 192, 192, 192, False),   # two tiles a sample
+    (3, 9, 192, 192, 192, False),    # one tile a sample
+    (1, 15, 128, 192, 192, True),    # gpool conv 2: r of [r | g], shift
+    (1, 23, 192, 192, 192, False),   # three tiles a sample
+    (2, 5, 128, 128, 192, True),
+])
+def test_wg_tiling_is_the_convolution(b, side, cin, ldx, cout, per_sample):
+    """The new mainloop's tiling (tiles of 192 grid rows of one sample's
+    board bordered by a zero column, the slab of every row the taps
+    reach, landed once a chunk with zeros off the board and the prologue
+    applied as it lands, the 9 taps as row offsets into it) computes the
+    twin's convolution."""
+    g = torch.Generator().manual_seed(24 + side)
+    x = torch.randn(b, side, side, ldx, generator=g).bfloat16()
+    w = ops.pack_conv(torch.randn(3, 3, cin, cout, generator=g)
+                      * (2 / (9 * cin)) ** 0.5).bfloat16()
+    scale = 1 + 0.1 * torch.randn(cin, generator=g)
+    shift = 0.5 + 0.2 * torch.randn(b if per_sample else 1, cin, generator=g)
+    es, et = 1 + 0.1 * torch.randn(cout, generator=g), 0.1 * torch.randn(
+        cout, generator=g)
+    res = torch.randn(b, side, side, cout, generator=g).bfloat16()
+    relu_from = cout // 3
+    got = wg_emulate(x, ldx, cin, w, cout, pro=(scale, shift),
+                     shift_stride=cin if per_sample else 0, epi=(es, et),
+                     relu_from=relu_from, res=res)
+    u = ops._prologue(x[..., :cin], scale,
+                      shift if per_sample else shift[0])
+    z = ops._conv(u, w) * es + et
+    z = torch.cat([z[..., :relu_from], torch.relu(z[..., relu_from:])], -1)
+    want = (z + res.float()).to(x.dtype)
+    assert not torch.isnan(got.float()).any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
 
 
 # --- the nets against the reference ----------------------------------------
