@@ -5,7 +5,7 @@
 
 Builds an instrumented copy of ``csrc/resblock.cu`` into
 ``build/kernels/profile/`` and runs the bf16 kernels at their chip_smoke
-shapes on the card, each variant named (``alphafive_resblock_as``):
+shapes on the card, each variant named (``alphafive_resblock``):
 resident (2,048 × 15×15 and 9×9 × 64), streaming (2,048 × 19×19 × 96 and
 128, and renju_19x19's 4,096 × 19×19 × 128 leaf forward) and general
 (2,048 × 15×15 × 256 and 2,048 × 21×21 × 64); then one sample of each
@@ -54,8 +54,10 @@ the timing is read.
 
 ``--source PATH`` profiles another copy of the source instead (a step's
 ``csrc/resblock.cu``, say, so that one call to the card compares the
-two); it must have ``alphafive_resblock_as``. ``--variant NAME`` profiles
-only that variant's shapes.
+two); it must have the variant-first ``alphafive_resblock(variant, dtype,
+...)`` and ``alphafive_resblock_workspace(variant, ...)`` (for an older
+source, run that checkout's own ``resblock_profile.py``). ``--variant
+NAME`` profiles only that variant's shapes.
 """
 
 from __future__ import annotations
@@ -151,11 +153,11 @@ def build(ablate, source: str = SOURCE) -> ctypes.CDLL:
                         cu], check=True, capture_output=True, text=True)
     lib = ctypes.CDLL(so)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.alphafive_resblock_as.restype = i32
-    lib.alphafive_resblock_as.argtypes = [i32] * 2 + [ptr] * 7 + [i32] * 4 + [
+    lib.alphafive_resblock.restype = i32
+    lib.alphafive_resblock.argtypes = [i32] * 2 + [ptr] * 7 + [i32] * 4 + [
         ptr]
-    lib.alphafive_resblock_workspace_as.restype = ctypes.c_longlong
-    lib.alphafive_resblock_workspace_as.argtypes = [i32] * 6
+    lib.alphafive_resblock_workspace.restype = ctypes.c_longlong
+    lib.alphafive_resblock_workspace.argtypes = [i32] * 6
     lib.resblock_stamps_fetch.restype = i32
     lib.resblock_stamps_fetch.argtypes = [ptr]
     lib.resblock_stamps_clear.restype = i32
@@ -171,11 +173,11 @@ def profile(lib, b: int, s: int, c: int, kind: str, seed: int = 0) -> dict:
               for _ in range(2))
     out = torch.empty_like(x)
     code = CODES[kind]
-    n = lib.alphafive_resblock_workspace_as(code, 1, b, s, s, c)
+    n = lib.alphafive_resblock_workspace(code, 1, b, s, s, c)
     ws = torch.empty(n, dtype=torch.uint8, device="cuda") if n else None
 
     def call():
-        err = lib.alphafive_resblock_as(
+        err = lib.alphafive_resblock(
             code, 1, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), b, s, s, c,

@@ -19,8 +19,9 @@
 // A 3x3 'same' conv is nine shifted [HW, C] x [C, C] products, and what
 // feeds them is shared memory.
 //
-// Five kernels; the host picks one per shape and batch with
-// resblock_variant() (ops/resblock.py::variant mirrors it):
+// Five kernels; the host picks one per shape and batch in
+// ops/resblock.py::variant and names it to alphafive_resblock, which
+// launches it where takes() says it takes the shape and refuses it else:
 //
 //   resident (bf16, C = 64, boards up to 15x15): the self-play path.
 //     * Persistent: one 256-thread CTA per SM walks samples b, b + grid, ...
@@ -149,9 +150,9 @@
 //       barrier, 24 ldmatrix.x4 (12 KB of shared memory a warp) and 64
 //       mma.sync per warp per K step (benchmarks/resblock_profile.py
 //       --ablate barrier / mma / copies / epilogue).
-//   split (bf16, C a multiple of 8, batches below kSplitBelow* of the
-//     variant the shape takes otherwise): the small batches of cli play,
-//     cli eval and the ladder eval (1 to 16 samples).
+//   split (bf16, C a multiple of 8, batches below ops/resblock.py's
+//     SPLIT_BELOW of the variant the shape takes otherwise): the small
+//     batches of cli play, cli eval and the ladder eval (1 to 16 samples).
 //     * What bounds a small batch: not the card's rates (1 x 19x19 x 128
 //       is 0.21 GFLOP and 0.78 MB: 0.23 us) but latency. The persistent
 //       kernels give a CTA whole samples, so one SM of 132 would stage
@@ -213,7 +214,6 @@ constexpr int kThreads = 256;
 constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use
 
 enum Variant {
-  kRefused = -1,
   kStreaming = 0,
   kResident = 1,
   kTiled = 2,
@@ -2415,14 +2415,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 // host side
 
-// The batch below which a bf16 block runs split rather than the variant
-// that takes its shape otherwise (chip_smoke.py's kernel_vs_plain rows:
-// split faster than that variant at every batch below; mirrored by
-// ops/resblock.py's SPLIT_BELOW).
-constexpr int kSplitBelowResident = 17;
-constexpr int kSplitBelowStreaming = 17;
-constexpr int kSplitBelowGeneral = 2;
-
 // Multiprocessors of the current device, read once a device.
 int sm_count() {
   static int cached[64] = {};
@@ -2464,8 +2456,8 @@ bool split_in_smem(int b, int h, int w, int c) {
   return split::push(k, h, w, c) && split::push(k < 8 ? k : 8, h, w, c);
 }
 
-// Whether `variant` takes this shape (alphafive_resblock_as launches a
-// variant by name only where it does).
+// Whether `variant` takes this shape (alphafive_resblock launches it only
+// where it does).
 bool takes(int variant, int dtype, int h, int w, int c) {
   if ((dtype != 0 && dtype != 1) || h < 1 || w < 1 || c < 1) return false;
   const bool fast = c == 64 || c == 96 || c == 128;  // instantiated widths
@@ -2483,27 +2475,6 @@ bool takes(int variant, int dtype, int h, int w, int c) {
       return dtype == 1 && split::fits(h, w, c);
   }
   return false;
-}
-
-int resblock_variant(int dtype, int b, int h, int w, int c) {
-  if ((dtype != 0 && dtype != 1) || h < 1 || w < 1 || c < 1) return kRefused;
-  int v = kGeneral;
-  if (dtype == 1) {
-    if (takes(kResident, dtype, h, w, c))
-      v = kResident;
-    else if (takes(kStreaming, dtype, h, w, c))
-      v = kStreaming;
-    const int below = v == kResident    ? kSplitBelowResident
-                      : v == kStreaming ? kSplitBelowStreaming
-                                        : kSplitBelowGeneral;
-    // a sample of one tile leaves a cluster nothing to split
-    if (b >= 1 && b < below && split::tiles(h, w, c) >= 2 &&
-        takes(kSplit, dtype, h, w, c))
-      return kSplit;
-    return v;
-  }
-  if (takes(kTiled, dtype, h, w, c)) return kTiled;
-  return kGeneral;
 }
 
 // Bytes of device workspace `variant` needs for a batch of b: the
@@ -2793,57 +2764,42 @@ cudaError_t launch_variant(int variant, int dtype, const void* x,
 
 }  // namespace
 
-// Which kernel alphafive_resblock runs for a batch of b at this shape: 0
-// streaming (bf16), 1 resident (bf16), 2 tiled (f32), 4 general (either
-// type, any C >= 1 and board), 5 split (bf16, below the batches
-// kSplitBelow*), -1 refused (a dtype other than 0 or 1, or a dimension
-// below 1).
-extern "C" int alphafive_resblock_variant(int dtype, int b, int h, int w,
-                                          int c) {
-  return resblock_variant(dtype, b, h, w, c);
+// Bytes of device workspace `variant` (a code of enum Variant) needs for
+// this batch and shape (the streaming variant's packed taps; y where it
+// does not fit in shared memory: each sample's for split, each CTA's for
+// general; else 0); the caller allocates it and passes it as `workspace`.
+extern "C" long long alphafive_resblock_workspace(int variant, int dtype,
+                                                  int b, int h, int w,
+                                                  int c) {
+  return workspace_bytes(variant, dtype, b, h, w, c);
 }
 
-// Bytes of device workspace alphafive_resblock needs for this batch and
-// shape (the streaming variant's packed taps; y where it does not fit in
-// shared memory: each sample's for split, each CTA's for general; else
-// 0); the caller allocates it and passes it as `workspace`.
-extern "C" long long alphafive_resblock_workspace(int dtype, int b, int h,
-                                                  int w, int c) {
-  return workspace_bytes(resblock_variant(dtype, b, h, w, c), dtype, b, h, w,
-                         c);
-}
-
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
-// the caller has checked shapes, types, contiguity and alignment, and
-// passes alphafive_resblock_workspace bytes at `workspace` (may be null
-// when that is 0). Launches on `stream` and does not synchronise.
-extern "C" int alphafive_resblock(int dtype, const void* x, const void* w1,
-                                  const void* b1, const void* w2,
-                                  const void* b2, void* out, void* workspace,
-                                  int b, int h, int w, int c, void* stream) {
-  return launch_variant(resblock_variant(dtype, b, h, w, c), dtype, x, w1,
-                        b1, w2, b2, out, workspace, b, h, w, c,
-                        static_cast<cudaStream_t>(stream));
-}
-
-// The same block by the variant named (a code of enum Variant) where that
-// variant takes the shape, else cudaErrorInvalidValue: for timing one
-// variant against another at one shape. The main path calls
-// alphafive_resblock.
-extern "C" int alphafive_resblock_as(int variant, int dtype, const void* x,
-                                     const void* w1, const void* b1,
-                                     const void* w2, const void* b2,
-                                     void* out, void* workspace, int b, int h,
-                                     int w, int c, void* stream) {
+// The block by the variant named (a code of enum Variant; the host picks
+// it, ops/resblock.py::variant), where that variant takes the shape, else
+// cudaErrorInvalidValue. dtype: 0 = float32, 1 = bfloat16. Returns a
+// cudaError_t (0 on success); the caller has checked shapes, types,
+// contiguity and alignment, and passes alphafive_resblock_workspace bytes
+// at `workspace` (may be null when that is 0). Launches on `stream` and
+// does not synchronise.
+extern "C" int alphafive_resblock(int variant, int dtype, const void* x,
+                                  const void* w1, const void* b1,
+                                  const void* w2, const void* b2, void* out,
+                                  void* workspace, int b, int h, int w, int c,
+                                  void* stream) {
   return launch_variant(variant, dtype, x, w1, b1, w2, b2, out, workspace, b,
                         h, w, c, static_cast<cudaStream_t>(stream));
 }
 
-// alphafive_resblock_as's workspace bytes for `variant`.
-extern "C" long long alphafive_resblock_workspace_as(int variant, int dtype,
-                                                     int b, int h, int w,
-                                                     int c) {
-  return workspace_bytes(variant, dtype, b, h, w, c);
+// The split variant's geometry for a batch of b at this shape: the CTAs
+// of its cluster (returned, before any narrowing), the band they tile
+// (`band`) and whether y is pushed to the peers (`push`, else it goes
+// through the workspace).
+extern "C" int alphafive_resblock_split_geometry(int b, int h, int w, int c,
+                                                 int* band, int* push) {
+  const int k = cluster_size(b, h, w, c);
+  *band = split::band(k, h, w, c);
+  *push = split::push(k, h, w, c);
+  return k;
 }
 
 // Split launches so far that ran clusters of 8 where 16 could not be

@@ -73,22 +73,19 @@ def _run(cmds, out_dir: str) -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.alphafive_resblock.restype = i32
-    lib.alphafive_resblock.argtypes = [i32] + [ptr] * 7 + [i32] * 4 + [ptr]
-    lib.alphafive_resblock_workspace.restype = ctypes.c_longlong
-    lib.alphafive_resblock_workspace.argtypes = [i32] * 5
-    lib.alphafive_resblock_as.restype = i32
-    lib.alphafive_resblock_as.argtypes = [i32] * 2 + [ptr] * 7 + [i32] * 4 + [
+    lib.alphafive_resblock.argtypes = [i32] * 2 + [ptr] * 7 + [i32] * 4 + [
         ptr]
-    lib.alphafive_resblock_workspace_as.restype = ctypes.c_longlong
-    lib.alphafive_resblock_workspace_as.argtypes = [i32] * 6
+    lib.alphafive_resblock_workspace.restype = ctypes.c_longlong
+    lib.alphafive_resblock_workspace.argtypes = [i32] * 6
+    lib.alphafive_resblock_split_geometry.restype = i32
+    lib.alphafive_resblock_split_geometry.argtypes = [i32] * 4 + [
+        ctypes.POINTER(i32)] * 2
     lib.alphafive_resblock_narrowed.restype = ctypes.c_longlong
     lib.alphafive_resblock_narrowed.argtypes = []
     lib.alphafive_resblock_active_clusters.restype = i32
     lib.alphafive_resblock_active_clusters.argtypes = [i32] * 4
-    lib.alphafive_resblock_variant.restype = i32
     lib.alphafive_resblock_pack_taps.restype = i32
     lib.alphafive_resblock_pack_taps.argtypes = [ptr] * 3 + [i32, ptr]
-    lib.alphafive_resblock_variant.argtypes = [i32] * 5
     lib.alphafive_nbt_conv.restype = i32
     lib.alphafive_nbt_conv.argtypes = ([ptr, i32, ptr, ptr, ptr, i32, ptr, ptr,
                                         i32, ptr, ptr] + [i32] * 8 + [ptr])

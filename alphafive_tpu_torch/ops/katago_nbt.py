@@ -30,11 +30,9 @@ producer) or ``mma`` (the 1×1s and every other shape: ``mma.sync`` over a
 ``preact_pair_as`` and ``gpool_pair_as`` run a named mainloop, for timing.
 
 Counters (``utils/trace.py``): ``nbt_launches.<entry point>``, one a call
-on CUDA tensors (0 on the CPU), readable as the module attribute
-``nbt_launches`` (a dict by entry point); ``nbt_conv_launches.<variant>``,
-one a convolution launched, by mainloop, readable as
-``nbt_conv_launches``. Span ``gpool``: the pooling pair's reduction and
-dense layer.
+on CUDA tensors (0 on the CPU); ``nbt_conv_launches.<variant>``, one a
+convolution launched, by mainloop. Span ``gpool``: the pooling pair's
+reduction and dense layer.
 """
 
 from __future__ import annotations
@@ -63,16 +61,6 @@ def conv_variant(ks: int, cin: int, cout: int, w: int) -> str:
     if ks == 3 and cin in (128, 192) and cout == 192 and w <= WG_MAX_WIDTH:
         return "wgmma3x3"
     return "mma"
-
-
-def __getattr__(name: str):
-    """``nbt_launches`` (a dict by entry point), ``nbt_conv_launches`` (by
-    mainloop): views of the counters."""
-    if name == "nbt_launches":
-        return {k: trace.counter("nbt_launches." + k) for k in KERNELS}
-    if name == "nbt_conv_launches":
-        return {k: trace.counter("nbt_conv_launches." + k) for k in VARIANTS}
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def pack_conv(kernel: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,10 @@ Layout is the JAX package's: x NHWC ``[B, H, W, C]``, packed weights
 ``[9, Cin, Cout]`` (tap = (dy + 1) * 3 + (dx + 1)), f32 biases ``[C]``.
 
 Counters (``utils/trace.py``): ``resblock_launches``, the same launches
-by the variant the library ran as ``variant_launches.<variant>`` (see
-`variant`), and ``pack_launches``, the streaming variant's tap packs (one
-before each streaming block, and each `pack_streaming_taps` on CUDA
-tensors).
+by the variant `variant` picked and the library launched as
+``variant_launches.<variant>``, and ``pack_launches``, the streaming
+variant's tap packs (one before each streaming block, and each
+`pack_streaming_taps` on CUDA tensors).
 """
 
 from __future__ import annotations
@@ -30,161 +30,27 @@ from alphafive_tpu_torch.utils import trace
 
 CHANNELS = (64, 96, 128)  # the widths the fast variants are built for
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use (H100)
-_SMS = 132             # the persistent kernels' grid: min(batch, SMs)
-# csrc/resblock.cu's general variant: output tiles of BM pixels (256 bf16,
-# 128 f32) x 64 channels; K steps of BK input channels of one tap (64
-# bf16, 32 f32); a ring of 3 (bf16) or 2 (f32) weight tiles of BK x 64
-# (_GENERAL_RING) and one or two A slabs of BK channels of the pixel rows
-# an M tile's taps reach, rows padded by 16 B (`_general_stage`); beside
-# them y of one sample where that fits
-
-
-def _general_dims(bf16: bool) -> tuple:
-    """(element bytes, elements in 16 B, BM, BK, ring stages)."""
-    return (2, 8, 256, 64, 3) if bf16 else (4, 4, 128, 32, 2)
-
-
-def _general_ring(bf16: bool) -> int:
-    elem, pad, _, bk, stages = _general_dims(bf16)
-    return stages * bk * (64 + pad) * elem
-
-
-_GENERAL_RING = {bf16: _general_ring(bf16) for bf16 in (True, False)}
-
-
-def _general_stage(h: int, w: int, c: int, bf16: bool) -> int:
-    """The general variant's shared memory beside y: the ring and the
-    slabs, each of the rows of all three tap rows of an M tile (BM + 2w +
-    2, at most h·w) and 3 zero rows (one slab where C <= BK and a 64-channel
-    residual row fits in a slab row, else two), or, where that does not
-    fit, two of one tap row (BM + 2)."""
-    elem, pad, bm, bk, _ = _general_dims(bf16)
-    for reach, slabs in ((2 * w + 2, 1 if c <= bk and 64 <= bk else 2),
-                         (2, 2)):
-        rows = min(bm + reach, h * w) + 3
-        stage = _GENERAL_RING[bf16] + slabs * rows * (bk + pad) * elem
-        if stage <= _SMEM_LIMIT:
-            return stage
-    raise AssertionError("one tap row's slabs always fit")
-
 # csrc/resblock.cu's split variant (bf16): one sample over the CTAs of a
-# thread-block cluster, each rank a tile of one band of the h x (w + 1)
-# grid's positions (SPLIT_BANDS) x 64 output channels on wgmma; clusters
-# of 2 to SPLIT_CLUSTER_MAX CTAs (`cluster_size`, counting tiles of
-# SPLIT_BM positions). It runs the batches below SPLIT_BELOW[v] of each
-# shape the variant v takes otherwise (kSplitBelowResident, ... in the
-# source): where chip_smoke.py measured it faster than v.
-SPLIT_BM, SPLIT_CLUSTER_MAX = 64, 16
-SPLIT_BANDS = (48, 64, 96, 192)   # band_at(0 .. kBands - 1); the last kBandMax
-SPLIT_STAGES, SPLIT_STAGE_BYTES, SPLIT_BAR_BYTES = 3, 3 * 64 * 64 * 2, 128
-SPLIT_BELOW_RESIDENT = 17
-SPLIT_BELOW_STREAMING = 17
-SPLIT_BELOW_GENERAL = 2
-SPLIT_BELOW = {"resident": SPLIT_BELOW_RESIDENT,
-               "streaming": SPLIT_BELOW_STREAMING,
-               "general": SPLIT_BELOW_GENERAL}
+# thread-block cluster, each rank a tile of a band of the h x (w + 1)
+# grid's positions x 64 output channels, counted in bands of SPLIT_BM. It
+# runs the batches below SPLIT_BELOW[v] of each shape the variant v takes
+# otherwise: where chip_smoke.py's kernel_vs_plain rows measured it faster
+# than v at every batch below.
+SPLIT_BM = 64
+SPLIT_BELOW = {"resident": 17, "streaming": 17, "general": 2}
 
 
-def split_tiles(h: int, w: int, c: int, n: int = SPLIT_BM) -> int:
-    """Output tiles of one sample in the split variant: bands of `n`
+def split_tiles(h: int, w: int, c: int) -> int:
+    """Output tiles of one sample in the split variant: bands of SPLIT_BM
     positions of the h x (w + 1) grid x 64-channel groups."""
-    return -(-h * (w + 1) // n) * -(-c // 64)
+    return -(-h * (w + 1) // SPLIT_BM) * -(-c // 64)
 
 
-def split_planes(c: int) -> int:
-    """16 B chunk planes of a split buffer: 8 a 64-channel group (zeros
-    past C, so that every K step is 4 k16 products)."""
-    return -(-c // 64) * 8
-
-
-def _split_rows(used: int) -> int:
-    """A split buffer's rows: `used`, one junk row, rounded to 1 mod 8."""
-    return (used + 7) // 8 * 8 + 1
-
-
-def split_window_rows(n: int, w: int) -> int:
-    """Rows of a split window: every row a band of `n`'s 9 taps read
-    (n + 2(w + 1) + 2), the junk row, rounded."""
-    return _split_rows(n + 2 * (w + 1) + 2)
-
-
-def split_band(k: int, h: int, w: int, c: int) -> int:
-    """The band of a cluster of k: the shortest in SPLIT_BANDS whose tiles
-    the ranks hold one each, else the longest."""
-    return next((n for n in SPLIT_BANDS if split_tiles(h, w, c, n) <= k),
-                SPLIT_BANDS[-1])
-
-
-def _split_push_smem(n: int, w: int, c: int) -> int:
-    return (SPLIT_BAR_BYTES + SPLIT_STAGES * SPLIT_STAGE_BYTES
-            + 2 * split_planes(c) * split_window_rows(n, w) * 16)
-
-
-_SPLIT_WS_SMEM = (SPLIT_BAR_BYTES + SPLIT_STAGES * SPLIT_STAGE_BYTES + 8 * (
-    _split_rows(SPLIT_BANDS[-1] + 2) + _split_rows(SPLIT_BANDS[-1])) * 16)
-
-
-def split_push(k: int, h: int, w: int, c: int) -> bool:
-    """Whether a cluster of k keeps y in shared memory and pushes it to
-    the peers: a tile a rank, and x's and y's windows fit; else y goes
-    through the workspace in tiles of the longest band."""
-    n = split_band(k, h, w, c)
-    return (split_tiles(h, w, c, n) <= k
-            and _split_push_smem(n, w, c) <= _SMEM_LIMIT)
-
-
-def _split_smem(k: int, h: int, w: int, c: int) -> int:
-    if split_push(k, h, w, c):
-        return _split_push_smem(split_band(k, h, w, c), w, c)
-    return _SPLIT_WS_SMEM
-
-
-def split_push_rows(t: int, u: int, n: int, w: int, c: int) -> tuple:
-    """The push map: the positions of tile t's band (its rank's y, in the
-    8 planes of its group) that tile u's window reaches, (first, count);
-    count 0 where none. Tile t holds band t // G (G = 64-channel groups),
-    group t % G; u's window covers positions [u // G n - w - 2, u // G n +
-    n + w + 2)."""
-    ng = -(-c // 64)
-    a, wa = t // ng * n, u // ng * n - w - 2
-    lo, hi = max(a, wa), min(a + n, wa + n + 2 * (w + 2))
-    return lo, max(hi - lo, 0)
-
-
-def split_push_bytes(u: int, ntiles: int, n: int, w: int, c: int) -> int:
-    """Bytes of y that tile u's window receives from the other tiles: the
-    8 planes of each one's group at the rows the map gives."""
-    return sum(split_push_rows(t, u, n, w, c)[1] * 8 * 16
-               for t in range(ntiles) if t != u)
-
-
-def cluster_size(b: int, h: int, w: int, c: int) -> int:
-    """CTAs of the split variant's cluster (csrc/resblock.cu's
-    cluster_size on a card of _SMS SMs): the power of two from 2 to
-    SPLIT_CLUSTER_MAX that covers one sample's tiles of SPLIT_BM
-    positions, halved while b clusters would hold more than half the SMs
-    (down to 2: a cluster's CTAs share one GPC, so fewer than 8 clusters
-    of 16 run at once). The library runs 8 where a cluster of 16 cannot
-    be co-scheduled, and counts it (`cluster_narrowed`)."""
-    k, t = 2, split_tiles(h, w, c)
-    while k < SPLIT_CLUSTER_MAX and k < t:
-        k *= 2
-    while k > 2 and b * k > _SMS // 2:
-        k //= 2
-    return k
-
-
-def split_in_smem(b: int, h: int, w: int, c: int) -> bool:
-    """Whether split keeps y on chip at this batch, at its cluster and at
-    the 8 a cluster of 16 narrows to (so the workspace is there whenever
-    the workspace path runs)."""
-    k = cluster_size(b, h, w, c)
-    return split_push(k, h, w, c) and split_push(min(k, 8), h, w, c)
-
-
-# csrc/resblock.cu's variant codes (alphafive_resblock_variant)
+# csrc/resblock.cu's variant codes (enum Variant), as alphafive_resblock
+# takes them
 VARIANTS = {0: "streaming", 1: "resident", 2: "tiled", 4: "general",
             5: "split"}
+_CODES = {v: k for k, v in VARIANTS.items()}
 _TAPS = 18  # both convs' taps, as the streaming variant streams them
 
 
@@ -275,54 +141,16 @@ def pack_streaming_taps(w1, w2) -> torch.Tensor:
     return taps
 
 
-# Shared-memory bytes of each kernel variant of csrc/resblock.cu, whose
-# resblock_variant() makes the same choice: `fused_resblock` raises if the
-# two disagree at a shape it launches. The bf16 kernels keep
+# Shared-memory bytes of the fast kernel variants of csrc/resblock.cu,
+# which `variant` picks only where they fit. The bf16 kernels keep
 # activations as C / 8 channel-chunk planes over an h x (w + 1) grid of
 # output positions, plus the rows the taps shift into and a junk row:
 # "resident" holds both convs' 18 taps (147,456 B at C = 64) beside two
 # such buffers of 2 x (48 or 120) positions; "streaming" one buffer of
 # 3 x 128 positions beside a ring of 3 taps and its 6 mbarriers of 8 B
 # (a full and an empty one a stage). "tiled" (f32) double-buffers
-# one 16 KB tap beside two halo-padded buffers of 272 B rows; "general"
-# its ring and slabs, and y of one sample where that fits (else y goes to
-# a device workspace, `_y_in_smem`): rows of C rounded up to 128 B plus
-# 16 B, and 3 zero rows; "split" (at batch b's cluster) 7 mbarriers in
-# 128 B and a ring of 3 tap rows of 64 x 64 weight slices beside x's and y's
-# windows of every plane over the band's tap rows (`_split_push_smem`),
-# or, where y goes through the workspace, one tap row's window of 8
-# planes and the tile's staging rows (`_SPLIT_WS_SMEM`).
-def _y_bytes(h: int, w: int, c: int, bf16: bool) -> int:
-    pad = 8 if bf16 else 4                    # elements in 16 B
-    stride = -(-c // (8 * pad)) * 8 * pad + pad
-    return (h * w + 3) * stride * (2 if bf16 else 4)
-
-
-def _y_in_smem(h: int, w: int, c: int, bf16: bool) -> bool:
-    need = _general_stage(h, w, c, bf16) + _y_bytes(h, w, c, bf16)
-    return need <= _SMEM_LIMIT
-
-
-def _workspace_bytes(b: int, h: int, w: int, c: int, bf16: bool,
-                     kind: str | None = None) -> int:
-    """Bytes of device workspace a batch of this shape takes
-    (csrc/resblock.cu's workspace_bytes on a card of _SMS SMs) in variant
-    `kind` (default: the one `variant` picks for the batch): the streaming
-    variant's packed taps; y where it does not fit on chip, of each sample
-    (split) or of one sample per persistent CTA (general)."""
-    kind = kind or variant(torch.bfloat16 if bf16 else torch.float32, h, w,
-                           c, b)
-    if b >= 1 and kind == "streaming":
-        return _TAPS * c * c * 2
-    if b >= 1 and kind == "split":
-        return 0 if split_in_smem(b, h, w, c) else b * h * w * c * 2
-    if b < 1 or kind != "general" or _y_in_smem(h, w, c, bf16):
-        return 0
-    return min(b, _SMS) * h * w * c * (2 if bf16 else 4)
-
-
-def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool,
-                b: int = 1) -> int:
+# one 16 KB tap beside two halo-padded buffers of 272 B rows.
+def _smem_bytes(variant: str, h: int, w: int, c: int) -> int:
     def rows(positions):
         return (positions + 2 * (w + 1) + 9) // 8 * 8 + 1
     if variant == "resident":
@@ -332,18 +160,14 @@ def _smem_bytes(variant: str, h: int, w: int, c: int, bf16: bool,
         return (2 * c * c + 2 * (h + 2) * (w + 2) * (c + 4)) * 4
     if variant == "streaming":
         return 3 * c * c * 2 + (c // 8) * rows(384) * 16 + 2 * 3 * 8
-    if variant == "general":
-        return _general_stage(h, w, c, bf16) + (
-            _y_bytes(h, w, c, bf16) if _y_in_smem(h, w, c, bf16) else 0)
-    if variant == "split":   # at the batch's cluster
-        return _split_smem(cluster_size(b, h, w, c), h, w, c)
-    raise ValueError(f"no variant {variant!r}")
+    raise ValueError(f"no fast variant {variant!r}")
 
 
 @functools.lru_cache(maxsize=None)   # a wrapper call asks it for its shape
 def variant(dtype: torch.dtype, h: int, w: int, c: int,
             b: int | None = None) -> str:
-    """The kernel variant that runs a [b, h, w, c] block of `dtype`:
+    """The kernel variant that runs a [b, h, w, c] block of `dtype`, the
+    one choice: csrc/resblock.cu launches the variant it is named.
     "resident" (bf16, C = 64, h·(w + 1) up to 240, e.g. 15×15: weights
     resident, wgmma), "tiled" (f32, C = 64, up to 256 pixels: register-
     blocked SIMT), "streaming" (bf16, C in CHANNELS, up to h·(w + 1) =
@@ -366,7 +190,7 @@ def variant(dtype: torch.dtype, h: int, w: int, c: int,
     else:
         kinds = [("tiled", c == 64 and h * w <= 256)]
     base = next((v for v, shape_ok in kinds if shape_ok and
-                 _smem_bytes(v, h, w, c, bf16) <= _SMEM_LIMIT), "general")
+                 _smem_bytes(v, h, w, c) <= _SMEM_LIMIT), "general")
     if (bf16 and b is not None and 1 <= b < SPLIT_BELOW[base]
             and split_tiles(h, w, c) >= 2 and c % 8 == 0):
         return "split"
@@ -407,75 +231,28 @@ def cluster_narrowed() -> int:
     return _build.load().alphafive_resblock_narrowed()
 
 
-# (dtype, b, h, w, c) -> (variant, workspace bytes) of shapes launched
-# before: the library's choice is checked against `variant` once a shape
-_launched: dict = {}
+@functools.lru_cache(maxsize=None)
+def _workspace_bytes(code: int, bf16: int, b: int, h: int, w: int,
+                     c: int) -> int:
+    """The library's workspace for variant `code` at this batch and shape:
+    the streaming variant's packed taps, or y where it does not fit in
+    shared memory (split: each sample's; general: each CTA's)."""
+    from alphafive_tpu_torch.ops import _build
+    return _build.load().alphafive_resblock_workspace(code, bf16, b, h, w, c)
 
 
-def _library_choice(lib, x, kind: str) -> tuple:
-    b, h, w, c = x.shape
-    key = (x.dtype, b, h, w, c)
-    if key not in _launched:
-        bf16 = int(x.dtype == torch.bfloat16)
-        ran = VARIANTS.get(lib.alphafive_resblock_variant(bf16, b, h, w, c))
-        if ran != kind:
-            raise RuntimeError(f"{b}x{h}x{w}x{c} {x.dtype}: variant() picks "
-                               f"{kind}, csrc/resblock.cu {ran or 'none'}")
-        _launched[key] = (ran, lib.alphafive_resblock_workspace(
-            bf16, b, h, w, c))
-    return _launched[key]
-
-
-def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
-    """x [B,H,W,C]; w1/w2 [9,C,C] packed (BN folded); b1/b2 f32 [C]."""
-    if x.device.type == "cpu":
-        return fused_resblock_reference(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"no resblock kernel for device {x.device}")
-    kind = _check(x, w1, b1, w2, b2)
+def _launch(kind: str, x, w1, b1, w2, b2) -> torch.Tensor:
+    """The block by variant `kind` on checked CUDA operands; ValueError
+    where that variant does not take the shape."""
     from alphafive_tpu_torch.ops import _build
     lib = _build.load()
     out = torch.empty_like(x)
     b, h, w, c = x.shape
-    bf16 = int(x.dtype == torch.bfloat16)
-    ran, n = _library_choice(lib, x, kind)
+    code, bf16 = _CODES[kind], int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        # the streaming variant's packed taps, or y where it does not fit
-        # in shared memory (split: each sample's; general: each CTA's)
+        n = _workspace_bytes(code, bf16, b, h, w, c)
         ws = torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
         err = lib.alphafive_resblock(
-            bf16, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), None if ws is None else
-            ws.data_ptr(), b, h, w, c,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"resblock kernel launch failed: CUDA error {err}")
-    trace.count("resblock_launches")
-    trace.count("variant_launches." + ran)
-    if ran == "streaming":   # the library packed the taps first
-        trace.count("pack_launches")
-    return out
-
-
-def fused_resblock_as(kind: str, x, w1, b1, w2, b2) -> torch.Tensor:
-    """The block on CUDA tensors by the kernel variant named `kind`, where
-    that variant takes the shape (the library's ``alphafive_resblock_as``),
-    else ValueError: to time one variant against another at one shape.
-    Counts no launch; the main path calls `fused_resblock`."""
-    if x.device.type != "cuda":
-        raise RuntimeError(f"fused_resblock_as launches kernels only: got "
-                           f"{x.device}")
-    _check(x, w1, b1, w2, b2)
-    code = {v: k for k, v in VARIANTS.items()}[kind]
-    from alphafive_tpu_torch.ops import _build
-    lib = _build.load()
-    out = torch.empty_like(x)
-    b, h, w, c = x.shape
-    bf16 = int(x.dtype == torch.bfloat16)
-    with torch.cuda.device(x.device):
-        n = lib.alphafive_resblock_workspace_as(code, bf16, b, h, w, c)
-        ws = torch.empty(n, dtype=torch.uint8, device=x.device) if n else None
-        err = lib.alphafive_resblock_as(
             code, bf16, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), None if ws is None
             else ws.data_ptr(), b, h, w, c,
@@ -485,3 +262,30 @@ def fused_resblock_as(kind: str, x, w1, b1, w2, b2) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"resblock {kind} launch failed: CUDA error {err}")
     return out
+
+
+def fused_resblock(x, w1, b1, w2, b2) -> torch.Tensor:
+    """x [B,H,W,C]; w1/w2 [9,C,C] packed (BN folded); b1/b2 f32 [C]."""
+    if x.device.type == "cpu":
+        return fused_resblock_reference(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"no resblock kernel for device {x.device}")
+    kind = _check(x, w1, b1, w2, b2)
+    out = _launch(kind, x, w1, b1, w2, b2)
+    trace.count("resblock_launches")
+    trace.count("variant_launches." + kind)
+    if kind == "streaming":   # the library packed the taps first
+        trace.count("pack_launches")
+    return out
+
+
+def fused_resblock_as(kind: str, x, w1, b1, w2, b2) -> torch.Tensor:
+    """The block on CUDA tensors by the kernel variant named `kind`, where
+    that variant takes the shape, else ValueError: to time one variant
+    against another at one shape. Counts no launch; the main path calls
+    `fused_resblock`."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_resblock_as launches kernels only: got "
+                           f"{x.device}")
+    _check(x, w1, b1, w2, b2)
+    return _launch(kind, x, w1, b1, w2, b2)

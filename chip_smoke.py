@@ -124,6 +124,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -145,6 +146,7 @@ from alphafive_tpu_torch.benchmarks import timing  # noqa: E402
 from alphafive_tpu_torch.ops import _build, resblock as rb  # noqa: E402
 from alphafive_tpu_torch.ops import select as sel  # noqa: E402
 from alphafive_tpu_torch.utils import trace  # noqa: E402
+from perfbench import yardstick  # noqa: E402
 
 # kernel vs plain: (batch, board, channels, dtype, the variant that must
 # run it); the first two are chip_15x15 self-play's pass and root forwards,
@@ -277,10 +279,6 @@ SELECT_TREES = [("15x15", 16), ("15x15", 256), ("19x19", 16)]
 RANDOM_33 = "random_33x33"
 SELECT_TREES += [(RANDOM_33, 16)]
 FORCED_K = 2.0   # the forced-playout gate's k in the second comparison
-# the card's published peaks (NVIDIA H100 SXM data sheet, dense): bf16
-# tensor cores, f32 outside the tensor cores, device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
 # the actor-learner iteration: iterations run (the first, one warm-up and
 # the timed ones), and steps compared f32 card against CPU
 ITERATION_WARMUP, ITERATION_REPEATS, LEARNER_CHECK_STEPS = 1, 2, 3
@@ -394,11 +392,12 @@ def nvidia_smi() -> str:
 
 
 def bound(flops: float, nbytes: float, dtype) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the
-    operations over the type's peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """yardstick.bound_s in ms, and what bounds it ("operations" or
+    "bytes")."""
+    name = str(dtype)[6:]
+    return yardstick.bound_s(flops, nbytes, name) * 1e3, (
+        "operations" if flops / yardstick.PEAK_FLOPS[name]
+        >= nbytes / yardstick.PEAK_BYTES else "bytes")
 
 
 def library_pair(x, w1, w2):
@@ -514,7 +513,10 @@ def split_vs_replaced(row: dict, kind: str, x, w1, b1, w2, b2) -> None:
     err = (got.float() - ref).abs()
     atol, rtol = TOL[dt]
     row["split_max_abs_err"] = err.max().item()
-    row["cluster_size"] = rb.cluster_size(b, h, w, c)
+    # the library's cluster, band and path for this batch and shape
+    band, push = ctypes.c_int(), ctypes.c_int()
+    row["cluster_size"] = _build.load().alphafive_resblock_split_geometry(
+        b, h, w, c, ctypes.byref(band), ctypes.byref(push))
     # clusters of that size the card runs at once at split's shared memory
     row["active_clusters"] = _build.load().alphafive_resblock_active_clusters(
         row["cluster_size"], h, w, c)
@@ -524,8 +526,7 @@ def split_vs_replaced(row: dict, kind: str, x, w1, b1, w2, b2) -> None:
     row["split_ms"], row["split_ms_spread"] = timing.graph_ms(
         lambda: rb.fused_resblock_as("split", x, w1, b1, w2, b2))
     row["split_before_ms"] = SPLIT_BEFORE_MS.get((b, h, c))
-    row["split_band"] = rb.split_band(row["cluster_size"], h, w, c)
-    row["split_push"] = rb.split_push(row["cluster_size"], h, w, c)
+    row["split_band"], row["split_push"] = band.value, bool(push.value)
     row["replaced"] = base
     row["replaced_ms"], row["replaced_ms_spread"] = timing.graph_ms(
         lambda: rb.fused_resblock_as(base, x, w1, b1, w2, b2))
@@ -1330,16 +1331,6 @@ def phase_eval(card: str):
     return launches
 
 
-def net_flops(cfg) -> float:
-    """Multiply-adds × 2 of one position's forward: the 3×3 stem and the
-    blocks' convs, the 1×1 head convs and the three dense layers."""
-    s2, c, a = cfg.env.board_size ** 2, cfg.net.channels, cfg.env.num_actions
-    convs = 2 * s2 * 9 * (4 * c + 2 * cfg.net.blocks * c * c)
-    heads = 2 * s2 * c * 3 + 2 * (2 * a * a + a * cfg.net.value_hidden
-                                  + cfg.net.value_hidden)
-    return convs + heads
-
-
 def learner_batches(traj, cfg, n: int, seed: int):
     """`n` batches of the preset's size sampled on the card from a ring
     filled with a self-play trajectory."""
@@ -1425,15 +1416,17 @@ def phase_learner_step(params, stats, traj, saved_cfg, card: str):
     # the step reads the batch once, and reads and writes each weight and
     # its two Adam moments
     in_bytes = sum(x.numel() * x.element_size() for x in b)
-    bound_ms, bound_by = bound(3 * net_flops(cfg) * bs,
+    flops = yardstick.net_flops(cfg.env.board_size, cfg.net.blocks,
+                                cfg.net.channels, cfg.net.value_hidden)
+    bound_ms, bound_by = bound(3 * flops * bs,
                                in_bytes + 6 * 4 * n_params, torch.bfloat16)
-    probe_bound, _ = bound(net_flops(cfg) * bs, b[0].numel() * 4
+    probe_bound, _ = bound(flops * bs, b[0].numel() * 4
                            + 4 * n_params, torch.bfloat16)
     kernel_ms = device["kernel_ms"]
     out = dict(batch=bs, f32_steps=LEARNER_CHECK_STEPS, tol=LEARNER_TOL,
                worst=worst, bf16_step_ms=step_ms,
                bf16_step_ms_spread=step_spread,
-               step_flops=3 * net_flops(cfg) * bs, bound_ms=bound_ms,
+               step_flops=3 * flops * bs, bound_ms=bound_ms,
                bound_by=bound_by, share_of_bound=bound_ms / step_ms,
                device_kernel_ms_per_step=kernel_ms,
                device_busy_share=(None if kernel_ms is None

@@ -13,7 +13,6 @@ A_pad 1152 and 2048. The CUDA kernels themselves are held against the plain
 versions on the card by chip_smoke.py.
 """
 
-import os
 import re
 
 import jax.numpy as jnp
@@ -26,13 +25,13 @@ from alphafive_tpu.ops import pallas_select as jps
 from alphafive_tpu_torch.ops import resblock as rb
 from alphafive_tpu_torch.ops import select as ps
 from alphafive_tpu_torch.utils import trace
+from resblock_source import (SMS, general_budget, general_ring, smem_bytes,
+                             source)
 from test_torch_net import assert_close, run_both
 from test_torch_resblock import make_inputs
 from test_torch_select import LANES, better, butterfly, lanes, make_tree
 
 torch.set_num_threads(1)
-
-CSRC = os.path.join(os.path.dirname(rb.__file__), os.pardir, "csrc")
 
 # chip_smoke.py's kernel_vs_plain rows of the general variant: (batch,
 # board, channels, dtype)
@@ -52,84 +51,47 @@ def test_variant_picks_general(b, size, c, dtype):
     general one, whose shared memory stays within one block's."""
     assert rb.variant(dtype, size, size, c) == "general"
     bf16 = dtype == torch.bfloat16
-    assert rb._smem_bytes("general", size, size, c, bf16) <= rb._SMEM_LIMIT
+    assert smem_bytes("general", b, size, size, c, bf16) <= rb._SMEM_LIMIT
     t = torch.zeros(2, size, size, c, dtype=dtype)
     w = torch.zeros(9, c, c, dtype=dtype)
     bias = torch.zeros(c)
     assert rb._check(t, w, bias, w, bias) == "general"
 
 
-def general_budget(h, w, c, bf16):
-    """csrc/resblock.cu's general variant's shared memory, from the tile
-    constants in its source: (ring and slabs, y's bytes, y on chip)."""
-    src = open(os.path.join(CSRC, "resblock.cu")).read()
-    body = src[src.index("namespace general {"):]
-    pick = {k: tuple(map(int, re.search(
-        rf"constexpr int {k}\(int elem\) {{\s*return elem == 2 \? (\d+) : "
-        rf"(\d+);", body).groups())) for k in ("bk", "stages", "warp_m")}
-    warp_n = int(re.search(r"constexpr int kWarpN = (\d+);", body).group(1))
-    warps_n = int(re.search(r"constexpr int kWarpsN = (\d+);", body).group(1))
-    threads = int(re.search(r"constexpr int kThreads = (\d+);", src).group(1))
-    i = 0 if bf16 else 1
-    elem = 2 if bf16 else 4
-    pad = 16 // elem
-    bk, stages, bm = pick["bk"][i], pick["stages"][i], pick["warp_m"][i]
-    bm *= threads // 32 // warps_n
-    bn = warp_n * warps_n
-    ring = stages * bk * (bn + pad) * elem
-    # span 3 (one slab where a tile reads one and the residual tile fits
-    # in it), else span 1
-    assert re.search(r"return span == 3 && c <= bk\(elem\) && "
-                     r"BN <= bk\(elem\) \? 1 : 2;", body)
-    zero = int(re.search(r"constexpr int kZeroRows = (\d+);", body).group(1))
-    for reach, slabs in ((2 * w + 2, 1 if c <= bk and bn <= bk else 2),
-                         (2, 2)):
-        rows = min(bm + reach, h * w) + zero
-        stage = ring + slabs * rows * (bk + pad) * elem
-        if stage <= rb._SMEM_LIMIT:
-            break
-    y = (h * w + zero) * (-(-c // (8 * pad)) * 8 * pad + pad) * elem
-    return stage, y, stage + y <= rb._SMEM_LIMIT
-
-
 def test_general_keeps_y_in_shared_memory_where_it_fits():
-    """The Python mirror of the general variant's shared memory matches
-    the tile constants parsed from its source: y of one sample beside the
-    ring and slabs where it fits (15×15 × 256 bf16), in the device
-    workspace where it does not (19×19 × 192 f32)."""
+    """The general variant's shared memory from the tile constants parsed
+    from its source: y of one sample beside the ring and slabs where it
+    fits (15×15 × 256 bf16), in the device workspace where it does not
+    (19×19 × 192 f32)."""
     assert general_budget(15, 15, 256, True) == (93_312, 120_384, True)
-    assert rb._GENERAL_RING[True] == 27_648
-    assert rb._general_stage(15, 15, 256, True) == 93_312
-    assert rb._y_in_smem(15, 15, 256, True)
-    assert rb._smem_bytes("general", 15, 15, 256, True) == 213_696
+    assert general_ring(True) == 3 * 64 * (64 + 8) * 2 == 27_648
+    assert smem_bytes("general", 1, 15, 15, 256, True) == 213_696
     assert general_budget(19, 19, 192, False) == (66_656, 285_376, False)
-    assert rb._GENERAL_RING[False] == 17_408
-    assert rb._general_stage(19, 19, 192, False) == 66_656
-    assert not rb._y_in_smem(19, 19, 192, False)
-    assert rb._smem_bytes("general", 19, 19, 192, False) == 66_656
+    assert general_ring(False) == 2 * 32 * (64 + 4) * 4 == 17_408
+    assert smem_bytes("general", 1, 19, 19, 192, False) == 66_656
 
 
 @pytest.mark.parametrize("b,size,c,dtype", GENERAL_SHAPES)
 def test_general_budget_and_workspace_match_source(b, size, c, dtype):
-    """At every general row: the mirrored shared memory is the source's
-    budget, and the workspace is alphafive_resblock_workspace's formula
-    (y of one sample per persistent CTA where y is not on chip)."""
+    """At every general row: the source's budget fits one block, y on chip
+    where it fits beside the ring and slabs, and the workspace is
+    alphafive_resblock_workspace's formula (y of one sample per
+    persistent CTA where y is not on chip)."""
     bf16 = dtype == torch.bfloat16
     stage, y, on_chip = general_budget(size, size, c, bf16)
-    assert rb._y_in_smem(size, size, c, bf16) == on_chip
-    assert rb._smem_bytes("general", size, size, c, bf16) == (
-        stage + y if on_chip else stage)
-    src = open(os.path.join(CSRC, "resblock.cu")).read()
+    assert on_chip == (stage + y <= rb._SMEM_LIMIT)
+    assert smem_bytes("general", b, size, size, c, bf16) == (
+        stage + y if on_chip else stage) <= rb._SMEM_LIMIT
+    src = source()
     body = src[src.index("long long workspace_bytes("):]
     assert "if (general::y_in_smem(h, w, c, elem)) return 0;" in body
     formula = re.search(r"return \(long long\)persistent_grid\(b\)"
                         r"((?: \* \w+)+);", body).group(1)
     want = 0 if on_chip else eval(
-        "grid" + formula, {}, dict(grid=min(b, rb._SMS), h=size, w=size,
+        "grid" + formula, {}, dict(grid=min(b, SMS), h=size, w=size,
                                    c=c, elem=2 if bf16 else 4))
-    # named: at batch 1 the dispatch runs split, whose own workspace
-    # test_torch_split.py checks
-    assert rb._workspace_bytes(b, size, size, c, bf16, "general") == want
+    assert want == (0 if on_chip else min(b, SMS) * size * size * c * (
+        2 if bf16 else 4))
 
 
 @pytest.mark.parametrize("size,c", [(5, 16), (7, 32)])

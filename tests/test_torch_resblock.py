@@ -14,6 +14,7 @@ import torch
 from alphafive_tpu.ops import pallas_resblock as prb
 from alphafive_tpu_torch.ops import resblock as rb
 from alphafive_tpu_torch.utils import trace
+from resblock_source import general_budget, smem_bytes, source
 
 torch.set_num_threads(1)
 
@@ -136,10 +137,11 @@ def test_kernel_wrapper_rejects_unsupported():
     (torch.float32, 15, 64, 1, "tiled"),        # f32 never splits
 ])
 def test_variant_chooser(dtype, size, c, batch, want):
-    """The kernel variant per shape and batch, as csrc/resblock.cu's
-    resblock_variant() picks it, within one block's shared memory."""
+    """The kernel variant per shape and batch, as ops/resblock.py::variant
+    picks it and names it to csrc/resblock.cu, within one block's shared
+    memory."""
     assert rb.variant(dtype, size, size, c, batch) == want
-    need = rb._smem_bytes(want, size, size, c, dtype == torch.bfloat16)
+    need = smem_bytes(want, batch, size, size, c, dtype == torch.bfloat16)
     assert need <= rb._SMEM_LIMIT
     t = torch.zeros(batch, size, size, c, dtype=dtype)
     w = torch.zeros(9, c, c, dtype=dtype)
@@ -150,22 +152,22 @@ def test_variant_chooser(dtype, size, c, batch, want):
 def test_variant_budgets():
     """Shared-memory bytes of the main-path variants: 18 resident bf16
     taps (147,456 B) beside two 281-row buffers of 8 channel planes."""
-    assert rb._smem_bytes("resident", 15, 15, 64, True) == 147_456 + 2 * 281 * 128
-    assert rb._smem_bytes("tiled", 15, 15, 64, False) == (
+    assert rb._smem_bytes("resident", 15, 15, 64) == 147_456 + 2 * 281 * 128
+    assert rb._smem_bytes("tiled", 15, 15, 64) == (
         2 * 64 * 64 + 2 * 17 * 17 * 68) * 4
     # 19x19x128 bf16 streams a ring of 3 taps beside one buffer of 16
     # channel planes of 433 rows (384 positions + 42 shifted + junk) and
     # the ring's full and empty mbarriers, 8 B each a stage
-    assert rb._smem_bytes("streaming", 19, 19, 128, True) == (
+    assert rb._smem_bytes("streaming", 19, 19, 128) == (
         3 * 128 * 128 * 2 + 16 * 433 * 16 + 2 * 3 * 8) == 209_200
     # f32 19x19 x 128: the general variant's ring and slabs (y, 192,192 B,
     # goes to the workspace)
-    assert rb._smem_bytes("general", 19, 19, 128, False) == 66_656
+    assert general_budget(19, 19, 128, False) == (66_656, 192_192, False)
     # past 384 positions (streaming) or 256 pixels (tiled) the fast
     # variants give way to the general one
     assert 25 * 26 > 384
     assert rb.variant(torch.bfloat16, 25, 25, 128) == "general"
-    assert rb._smem_bytes("general", 25, 25, 128, False) == 70_112
+    assert general_budget(25, 25, 128, False)[0] == 70_112
     assert rb.variant(torch.float32, 25, 25, 128) == "general"
     with pytest.raises(ValueError, match="at least 1"):
         rb.variant(torch.float32, 5, 5, 0)
@@ -173,15 +175,12 @@ def test_variant_budgets():
 
 def test_variant_codes_match_source():
     """VARIANTS names the codes of csrc/resblock.cu's enum Variant, which
-    alphafive_resblock_variant returns and the wrapper counts launches by."""
-    import os
+    alphafive_resblock takes and the wrapper counts launches by."""
     import re
-    src = open(os.path.join(os.path.dirname(rb.__file__), os.pardir, "csrc",
-                            "resblock.cu")).read()
-    enum = re.search(r"enum Variant \{(.*?)\};", src, re.S).group(1)
+    enum = re.search(r"enum Variant \{(.*?)\};", source(), re.S).group(1)
     codes = {int(v): k for k, v in re.findall(r"k(\w+) = (-?\d+)", enum)}
-    names = {-1: "Refused", 0: "Streaming", 1: "Resident", 2: "Tiled",
-             4: "General", 5: "Split"}
+    names = {0: "Streaming", 1: "Resident", 2: "Tiled", 4: "General",
+             5: "Split"}
     assert codes == names
     assert rb.VARIANTS == {0: "streaming", 1: "resident", 2: "tiled",
                            4: "general", 5: "split"}
@@ -207,9 +206,7 @@ def test_check_rejects_misaligned():
 
 def streaming_source() -> tuple:
     """csrc/resblock.cu, and its streaming namespace."""
-    import os
-    src = open(os.path.join(os.path.dirname(rb.__file__), os.pardir, "csrc",
-                            "resblock.cu")).read()
+    src = source()
     a = src.index("namespace streaming {")
     return src, src[a:src.index("}  // namespace streaming", a)]
 
@@ -254,9 +251,9 @@ def test_pack_streaming_taps_matches_kernel_map(c):
                                       (1, 19, 128)])
 def test_streaming_workspace_matches_source(b, size, c):
     """The streaming variant's workspace holds both convs' packed taps,
-    18·C²·2 bytes whatever the batch: alphafive_resblock_workspace's
-    formula and its tap count parsed from csrc/resblock.cu, against the
-    wrapper's mirror."""
+    18·C²·2 bytes whatever the batch (none for an empty one):
+    alphafive_resblock_workspace's formula and its tap count parsed from
+    csrc/resblock.cu."""
     import re
     src, body = streaming_source()
     taps = int(re.search(r"constexpr int kTaps = (\d+);", body).group(1))
@@ -267,15 +264,17 @@ def test_streaming_workspace_matches_source(b, size, c):
     want = eval("kTaps" + formula, {}, dict(kTaps=taps, c=c))
     assert want == 18 * c * c * 2
     assert rb.variant(torch.bfloat16, size, size, c) == "streaming"
-    # named: a batch of 1 at 19x19 x 128 dispatches to the split variant
-    assert rb._workspace_bytes(b, size, size, c, True, "streaming") == want
-    assert rb._workspace_bytes(0, size, size, c, True, "streaming") == 0
+    assert "if (b < 1) return 0;" in fn[:fn.index("kStreaming")]
+    # a batch of 1 at 19x19 x 128 names the split variant
+    assert rb.variant(torch.bfloat16, size, size, c, b) == (
+        "split" if b < rb.SPLIT_BELOW["streaming"] else "streaming")
 
 
 def test_streaming_smem_matches_source():
-    """The mirror's streaming shared memory is the source's smem_bytes: the
-    ring of kStages taps, the buffer, and a full and an empty mbarrier a
-    stage; it fits at every width the variant takes on a 19x19 board."""
+    """ops/resblock.py's streaming shared memory is the source's
+    smem_bytes: the ring of kStages taps, the buffer, and a full and an
+    empty mbarrier a stage; it fits at every width the variant takes on a
+    19x19 board."""
     import re
     _, body = streaming_source()
     stages = int(re.search(r"constexpr int kStages = (\d+);",
@@ -284,7 +283,7 @@ def test_streaming_smem_matches_source():
                      r"buffer_rows\(w\) \* 16 \+ 2 \* kStages \* 8;", body)
     for c in rb.CHANNELS:
         want = stages * c * c * 2 + c // 8 * 433 * 16 + 2 * stages * 8
-        assert rb._smem_bytes("streaming", 19, 19, c, True) == want
+        assert rb._smem_bytes("streaming", 19, 19, c) == want
         assert want <= rb._SMEM_LIMIT
 
 

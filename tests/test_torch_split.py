@@ -1,17 +1,17 @@
 """The resblock's split variant (one sample over a thread-block cluster):
-its dispatch, band choice, push map, shared memory and workspace against
-csrc/resblock.cu, a band-by-band emulation of the kernel against the plain
-twin, and the plain twin and the fused net at the batches it takes
-against JAX.
+its dispatch, and its band choice, push map, shared memory and workspace
+as csrc/resblock.cu computes them (resblock_source.py), a band-by-band
+emulation of the kernel against the plain twin, and the plain twin and
+the fused net at the batches it takes against JAX.
 
 On the CPU ``fused_resblock`` runs ``fused_resblock_reference`` whatever
 the batch; the JAX side runs the Pallas kernel in interpret mode. The
 CUDA kernel itself is held against the plain version on the card by
-chip_smoke.py (its ``kernel_vs_plain`` rows, split launched through
-``alphafive_resblock_as``).
+chip_smoke.py (its ``kernel_vs_plain`` rows, split named by
+``fused_resblock_as``).
 """
 
-import functools
+import glob
 import os
 import re
 
@@ -23,13 +23,14 @@ import torch
 from alphafive_tpu.ops import pallas_resblock as prb
 from alphafive_tpu_torch.ops import resblock as rb
 from alphafive_tpu_torch.utils import trace
+from resblock_source import (SMS, smem_bytes, source, source_bands,
+                             source_cluster_size, source_split,
+                             split_in_smem)
 from test_torch_net import assert_close, run_both
 from test_torch_resblock import make_inputs
 
 torch.set_num_threads(1)
 
-SOURCE = os.path.join(os.path.dirname(rb.__file__), os.pardir, "csrc",
-                      "resblock.cu")
 BF16 = torch.bfloat16
 # (board, channels, the variant at a batch that names none): the evals'
 # and cli play's 15x15 x 64, the 19x19_10b bundle's 19x19 x 128, a
@@ -39,169 +40,37 @@ SHAPES = [(15, 64, "resident"), (19, 128, "streaming"),
 BATCHES = [1, 2, 3, 4, 8, 16, 17, 32, 64, 133, 256, 512, 2048]
 
 
-def source_constants() -> dict:
-    src = open(SOURCE).read()
-    names = ("kSplitBelowResident", "kSplitBelowStreaming",
-             "kSplitBelowGeneral", "BM", "kClusterMax", "kBands",
-             "kBandMax", "kStages", "kBarBytes")
-    split = src[src.index("namespace split {"):]
-    return {k: int(re.search(rf"constexpr int {k} = (\d+);", split).group(1))
-            for k in names}
-
-
-def source_bands() -> tuple:
-    """split::band_at's lengths, parsed from the source."""
-    src = open(SOURCE).read()
-    body = src[src.index("constexpr int band_at(int i) {"):]
-    body = body[:body.index("}")]
-    found = [int(v) for v in re.findall(r"\? (\d+)", body)]
-    return tuple(found) + (source_constants()["kBandMax"],)
-
-
-def source_cluster_size(b, h, w, c, sms=rb._SMS) -> int:
-    """csrc/resblock.cu's cluster_size, its loops parsed from the source
-    and run with the source's constants (tiles of BM positions of the
-    h x (w + 1) grid)."""
-    src = open(SOURCE).read()
-    body = src[src.index("int cluster_size(int b, int h, int w, int c)"):]
-    body = body[:body.index("\n}\n")]
-    assert "while (k < split::kClusterMax && k < t) k *= 2;" in body
-    assert "while (k > 2 && (long long)b * k > sm_count() / 2) k /= 2;" in body
-    tiles = src[src.index("constexpr int tiles(int h, int w, int c"):]
-    assert "return (cells(h, w) + n - 1) / n * groups(c);" in tiles
-    assert "return h * (w + 1); }" in src
-    k_max, bm = source_constants()["kClusterMax"], source_constants()["BM"]
-    t = -(-h * (w + 1) // bm) * -(-c // 64)
-    k = 2
-    while k < k_max and k < t:
-        k *= 2
-    while k > 2 and b * k > sms // 2:
-        k //= 2
-    return k
-
-
-def _close(e: str, i: int) -> int:
-    """The index of the bracket that closes the one at e[i]."""
-    depth = 0
-    for j in range(i, len(e)):
-        depth += e[j] in "({[" and 1 or -(e[j] in ")}]")
-        if depth == 0:
-            return j
-    raise ValueError(f"unbalanced: {e!r}")
-
-
-def _py_expr(e: str) -> str:
-    """A C expression of split's host/device helpers as Python: the
-    ternary (lowest precedence, right-associative), && / || / !, and
-    integer division (every quotient in these helpers is of non-negative
-    values, where C's and Python's agree)."""
-    e = " ".join(e.split()).replace("split::", "")
-    depth = 0
-    for i, ch in enumerate(e):
-        depth += ch == "(" and 1 or -(ch == ")")
-        if ch == "?" and depth == 0:
-            nest = d = 0
-            for j in range(i + 1, len(e)):
-                d += e[j] == "(" and 1 or -(e[j] == ")")
-                if d == 0 and e[j] == "?":
-                    nest += 1
-                elif d == 0 and e[j] == ":":
-                    if nest == 0:
-                        break
-                    nest -= 1
-            return (f"({_py_expr(e[i + 1:j])} if {_py_expr(e[:i])} else "
-                    f"{_py_expr(e[j + 1:])})")
-    e = e.replace("&&", " and ").replace("||", " or ")
-    e = re.sub(r"!(?!=)", " not ", e)
-    return re.sub(r"(?<![/])/(?![/])", "//", e)
-
-
-def _py_stmt(st: str, ref: str | None, pad: str) -> list:
-    """One C statement (no trailing ';') as lines of Python."""
-    st = st.strip()
-    m = re.match(r"for \(int (\w+) = (.+?); \1 < (.+?); \+\+\1\)", st)
-    if m:
-        return [f"{pad}for {m[1]} in range({_py_expr(m[2])}, "
-                f"{_py_expr(m[3])}):"] + _py_stmt(st[m.end():], ref,
-                                                  pad + "    ")
-    if st.startswith("if ("):
-        j = _close(st, 3)
-        return [f"{pad}if {_py_expr(st[4:j])}:"] + _py_stmt(
-            st[j + 1:], ref, pad + "    ")
-    if st.startswith("return "):
-        v = _py_expr(st[len("return "):])
-        return [f"{pad}return {v}" + (f", {ref}" if ref else "")]
-    st = re.sub(r"^(const )?(int|bool) ", "", st)
-    out, depth, start = [], 0, 0
-    for i, ch in enumerate(st + ","):
-        depth += ch == "(" and 1 or -(ch == ")")
-        if ch == "," and depth == 0:
-            name, _, v = st[start:i].partition("=")
-            out.append(f"{pad}{name.strip()} = {_py_expr(v)}")
-            start = i + 1
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def source_split() -> dict:
-    """csrc/resblock.cu's namespace split: its constants, and its
-    __host__ __device__ helpers (band_at, tiles, band, push, smem_bytes,
-    push_rows, ...) translated statement by statement into Python and
-    run: what the kernel and launch_split compute, not a mirror of it. A
-    reference parameter (push_rows's `lo`) is returned after the value."""
-    src = open(SOURCE).read()
-    body = src[src.index("namespace split {"):]
-    body = body[:body.index("}  // namespace split")]
-    env = {"kSmemLimit": int(re.search(r"constexpr int kSmemLimit = (\d+);",
-                                       src)[1])}
-    head = body[:body.index("__host__")]
-    for name, v in re.findall(r"constexpr int (\w+) = ([^;]+);", head):
-        env[name] = eval(_py_expr(v), {}, dict(env))
-    fn = re.compile(r"__host__ __device__ (?:constexpr|inline) (?:int|bool) "
-                    r"(\w+)\(([^)]*)\) \{")
-    for m in fn.finditer(body):
-        text = body[m.end():_close(body, m.end() - 1)]
-        params, ref = [], None
-        for p in m[2].split(","):
-            p = " ".join(p.split())
-            if p.startswith("int& "):
-                ref = p[len("int& "):]
-                continue
-            params.append(re.sub(r"^(int|bool) ", "", p).replace(" = ", "="))
-        stmts, depth, start = [], 0, 0
-        for i, ch in enumerate(text):
-            depth += ch == "(" and 1 or -(ch == ")")
-            if ch == ";" and depth == 0:
-                stmts.append(text[start:i])
-                start = i + 1
-        lines = [f"def {m[1]}({', '.join(params)}):"]
-        if ref:
-            lines.append(f"    {ref} = 0")
-        for st in stmts:
-            lines += _py_stmt(st, ref, "    ")
-        exec("\n".join(lines), env)
-    return env
-
-
 def test_split_constants_match_source():
-    """The crossovers, the tile, the cluster bound, the bands, the ring and
-    the barriers are the source's."""
-    got = source_constants()
-    assert got == {"kSplitBelowResident": rb.SPLIT_BELOW_RESIDENT,
-                   "kSplitBelowStreaming": rb.SPLIT_BELOW_STREAMING,
-                   "kSplitBelowGeneral": rb.SPLIT_BELOW_GENERAL,
-                   "BM": rb.SPLIT_BM, "kClusterMax": rb.SPLIT_CLUSTER_MAX,
-                   "kBands": len(rb.SPLIT_BANDS),
-                   "kBandMax": rb.SPLIT_BANDS[-1],
-                   "kStages": rb.SPLIT_STAGES,
-                   "kBarBytes": rb.SPLIT_BAR_BYTES}
-    assert source_bands() == rb.SPLIT_BANDS
-    assert ("constexpr int kStageBytes = 3 * 64 * 64 * 2;"
-            in open(SOURCE).read())
-    assert rb.SPLIT_STAGE_BYTES == 3 * 64 * 64 * 2
-    assert rb.SPLIT_BELOW == {"resident": rb.SPLIT_BELOW_RESIDENT,
-                              "streaming": rb.SPLIT_BELOW_STREAMING,
-                              "general": rb.SPLIT_BELOW_GENERAL}
+    """The tile `variant` counts in is the source's; the cluster bound, the
+    bands, the ring and the barriers are as the tests below state them."""
+    S = source_split()
+    assert {k: S[k] for k in ("BM", "kClusterMax", "kBands", "kBandMax",
+                              "kStages", "kBarBytes")} == {
+        "BM": rb.SPLIT_BM, "kClusterMax": 16, "kBands": 4, "kBandMax": 192,
+        "kStages": 3, "kBarBytes": 128}
+    assert source_bands() == (48, 64, 96, 192)
+    assert "constexpr int kStageBytes = 3 * 64 * 64 * 2;" in source()
+    assert S["kStageBytes"] == 3 * 64 * 64 * 2
+
+
+def test_variant_is_chosen_once():
+    """ops/resblock.py::variant is the one chooser: the library launches
+    the variant it is named and has no choice or crossover of its own, and
+    the split crossovers are defined in ops/resblock.py alone."""
+    for name in ("alphafive_resblock_variant", "resblock_variant",
+                 "kSplitBelow", "alphafive_resblock_as", "workspace_as"):
+        assert name not in source(), name
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    files = sorted(glob.glob(os.path.join(root, "alphafive_tpu_torch", "**",
+                                          "*.*"), recursive=True)
+                   + [os.path.join(root, "chip_smoke.py")])
+    defined = [os.path.relpath(f, root) for f in files
+               if f.endswith((".py", ".cu")) and re.search(
+                   r"^\s*(SPLIT_BELOW\w*|constexpr int kSplit\w*)\s*=",
+                   open(f).read(), re.M)]
+    assert defined == [os.path.join("alphafive_tpu_torch", "ops",
+                                    "resblock.py")]
+    assert set(rb.SPLIT_BELOW) == {"resident", "streaming", "general"}
 
 
 @pytest.mark.parametrize("size,c,base", SHAPES)
@@ -227,14 +96,15 @@ def test_variant_by_batch(size, c, base):
                                                (33, 64, "general"),
                                                (9, 64, "resident")])
 def test_cluster_size_matches_source(b, size, c, _):
-    """cluster_size: a power of two from 2 to 16 that covers one sample's
-    tiles, halved while the batch's clusters exceed half the 132 SMs."""
-    k = rb.cluster_size(b, size, size, c)
-    assert k == source_cluster_size(b, size, size, c)
+    """The source's cluster_size: a power of two from 2 to 16 that covers
+    one sample's tiles, halved while the batch's clusters exceed half the
+    132 SMs; the tiles `variant` counts are the source's."""
+    k = source_cluster_size(b, size, size, c)
+    tiles = source_split()["tiles"](size, size, c)
+    assert rb.split_tiles(size, size, c) == tiles
     assert k in (2, 4, 8, 16)
-    assert k == 2 or b * k <= rb._SMS // 2
-    assert (k >= min(rb.split_tiles(size, size, c), 16)
-            or b * 2 * k > rb._SMS // 2)
+    assert k == 2 or b * k <= SMS // 2
+    assert k >= min(tiles, 16) or b * 2 * k > SMS // 2
 
 
 def test_cluster_sizes_at_the_rows():
@@ -242,14 +112,14 @@ def test_cluster_sizes_at_the_rows():
     sample (4 tiles of 64 of its 15 x 16 positions), 16 a 19x19 x 128 one
     (12 tiles) but 8 at 8 samples and 4 at 16 (64 CTAs), 16 at 15x15 x
     256 (16 tiles) and 240x240 x 72, 2 at 64 x 6x6 x 8 (one tile)."""
-    assert [rb.cluster_size(b, 15, 15, 64) for b in (1, 16)] == [4, 4]
-    assert [rb.cluster_size(b, 19, 19, 128) for b in (1, 4, 8, 16)] == [
+    assert [source_cluster_size(b, 15, 15, 64) for b in (1, 16)] == [4, 4]
+    assert [source_cluster_size(b, 19, 19, 128) for b in (1, 4, 8, 16)] == [
         16, 16, 8, 4]
     assert rb.split_tiles(19, 19, 128) == 12
-    assert rb.cluster_size(1, 15, 15, 256) == 16
+    assert source_cluster_size(1, 15, 15, 256) == 16
     assert rb.split_tiles(15, 15, 256) == 16
-    assert rb.cluster_size(1, 240, 240, 72) == 16
-    assert rb.cluster_size(64, 6, 6, 8) == 2
+    assert source_cluster_size(1, 240, 240, 72) == 16
+    assert source_cluster_size(64, 6, 6, 8) == 2
     # one tile: nothing to split, whatever the batch
     assert rb.variant(BF16, 6, 6, 8, 1) == "general"
 
@@ -272,19 +142,18 @@ def test_split_band_choice(b, size, c, k, band, tiles, push):
     evenly on the cluster (19x19 x 128: 16 tiles of 48 for 16 ranks at
     batch 1, 8 of 96 for 8 at batch 8, 4 of 192 for 4 at 16; 15x15 x 64: 4
     of 64 for 4); where no band does, the workspace path's 192."""
-    assert rb.cluster_size(b, size, size, c) == k
-    assert rb.split_band(k, size, size, c) == band
-    assert rb.split_tiles(size, size, c, band) == tiles
-    assert rb.split_push(k, size, size, c) == push
+    S, bands = source_split(), source_bands()
+    assert source_cluster_size(b, size, size, c) == k
+    assert S["band"](k, size, size, c) == band
+    assert S["tiles"](size, size, c, band) == tiles
+    assert S["push"](k, size, size, c) == push
     if push:
-        assert tiles <= k and (band == rb.SPLIT_BANDS[0] or rb.split_tiles(
-            size, size, c, rb.SPLIT_BANDS[rb.SPLIT_BANDS.index(band) - 1])
-            > k)
-        assert rb._smem_bytes("split", size, size, c, True, b) == (
-            rb._split_push_smem(band, size, c)) <= rb._SMEM_LIMIT
+        assert tiles <= k and (band == bands[0] or S["tiles"](
+            size, size, c, bands[bands.index(band) - 1]) > k)
+        assert smem_bytes("split", b, size, size, c, True) == (
+            S["push_smem"](band, size, c)) <= rb._SMEM_LIMIT
     else:
-        assert rb._smem_bytes("split", size, size, c, True, b) == (
-            rb._SPLIT_WS_SMEM)
+        assert smem_bytes("split", b, size, size, c, True) == S["ws_smem"]()
 
 
 # (board, channels): the rows' shapes, the emulated ones and the edges
@@ -294,69 +163,76 @@ MIRRORED = [(15, 64), (19, 128), (15, 256), (33, 64), (240, 72), (240, 8),
 
 @pytest.mark.parametrize("size,c", MIRRORED)
 def test_split_mirrors_match_source(size, c):
-    """ops/resblock.py's mirrors of split's helpers give what the source's
-    own give (translated and run, see source_split) at every cluster:
-    tiles, band, push, shared memory, window rows, and the push map (first
-    row and count) and each tile's expected bytes over every pair of
-    tiles."""
+    """split's helpers as the source computes them (translated and run,
+    see source_split), at every cluster: the planes, tiles and window rows
+    by their definitions; push false wherever the tiles outnumber the
+    ranks; the push map (first row and count) over every pair of tiles the
+    intersection of t's band with u's window, inside u's window; each of
+    u's window positions on the bands arriving from one tile of each
+    64-channel group, so that the bytes u receives are its window's rows
+    of every group less its own."""
     S = source_split()
-    assert S["planes"](c) == rb.split_planes(c)
-    for n in (S["BM"],) + rb.SPLIT_BANDS:
-        assert S["tiles"](size, size, c, n) == rb.split_tiles(size, size, c, n)
-        assert S["window_rows"](n, size) == rb.split_window_rows(n, size)
-    assert S["ws_smem"]() == rb._SPLIT_WS_SMEM
+    assert S["planes"](c) == -(-c // 64) * 8
+    assert S["tiles"](size, size, c) == rb.split_tiles(size, size, c)
+    for n in (S["BM"],) + source_bands():
+        assert S["tiles"](size, size, c, n) == (
+            -(-size * (size + 1) // n) * -(-c // 64))
+        assert S["window_rows"](n, size) == (
+            (n + 2 * (size + 1) + 2 + 7) // 8 * 8 + 1)
+    ng = -(-c // 64)
     for k in (2, 4, 8, 16):
         n = S["band"](k, size, size, c)
-        assert n == rb.split_band(k, size, size, c)
-        assert S["push"](k, size, size, c) == rb.split_push(k, size, size, c)
-        assert S["smem_bytes"](k, size, size, c) == rb._split_smem(
-            k, size, size, c)
         nt = S["tiles"](size, size, c, n)
-        if nt > 32:            # the workspace path: no push map
+        if nt > k:
             assert not S["push"](k, size, size, c)
+        if nt > 32:            # the workspace path: no push map
             continue
+        span = n + 2 * (size + 2)            # a window's positions
         for u in range(nt):
-            tx = 0
-            for t in range(nt):
-                cnt, lo = S["push_rows"](t, u, n, size, c)
-                want_lo, want = rb.split_push_rows(t, u, n, size, c)
+            wa = u // ng * n - size - 2      # u's window's first position
+            on_bands = min(wa + span, nt // ng * n) - max(wa, 0)
+            rows = [S["push_rows"](t, u, n, size, c) for t in range(nt)]
+            for t, (cnt, lo) in enumerate(rows):
+                a = t // ng * n
+                want = max(min(a + n, wa + span) - max(a, wa), 0)
                 assert cnt == want, (k, t, u)
-                assert cnt == 0 or lo == want_lo, (k, t, u)
-                tx += cnt * 8 * 16 if t != u else 0
-            assert tx == rb.split_push_bytes(u, nt, n, size, c), (k, u)
+                assert cnt == 0 or (lo == max(a, wa)
+                                    and lo - wa + cnt <= span), (k, t, u)
+            for g in range(ng):
+                assert sum(cnt for cnt, _ in rows[g::ng]) == on_bands
+            received = sum(cnt * 8 * 16 for t, (cnt, _) in enumerate(rows)
+                           if t != u)
+            assert received == (ng * on_bands - rows[u][0]) * 8 * 16, (k, u)
 
 
-@pytest.mark.parametrize("size,c,on_chip,smem", [
-    (15, 64, True, 100_736), (19, 128, True, 123_520),
-    (15, 256, False, 181_376), (240, 72, False, 124_288),
-    (6, 8, True, 90_496)])
-def test_split_budget_and_workspace(size, c, on_chip, smem):
+@pytest.mark.parametrize("size,c,on_chip,smem,ws16", [
+    (15, 64, True, 100_736, 0), (19, 128, True, 123_520, 0),
+    (15, 256, False, 181_376, 16 * 15 * 15 * 256 * 2),
+    (240, 72, False, 124_288, 16 * 240 * 240 * 72 * 2),
+    (6, 8, True, 90_496, 0)])
+def test_split_budget_and_workspace(size, c, on_chip, smem, ws16):
     """Shared memory at batch 1: the barriers, the ring of 3 tap rows of 64
     x 64 slices, and x's and y's windows of every chunk plane over the
     band's tap rows (push path), or one tap row's window and the tile's
     staging rows (the workspace path, 240x240 x 72). The workspace holds y of every
     sample where the push path may not run: at the cluster or at the 8 a
     cluster of 16 narrows to (15x15 x 256 pushes at 16 but not at 8)."""
-    assert rb._smem_bytes("split", size, size, c, True) == smem
+    assert smem_bytes("split", 1, size, size, c, True) == smem
     assert smem <= rb._SMEM_LIMIT
-    assert rb.split_in_smem(1, size, size, c) == on_chip
-    for b in (1, 16):
-        want = 0 if rb.split_in_smem(b, size, size, c) else (
-            b * size * size * c * 2)
-        assert rb._workspace_bytes(b, size, size, c, True, "split") == want
-    assert rb._workspace_bytes(1, size, size, c, True, "split") == (
-        0 if on_chip else size * size * c * 2)
-    src = open(SOURCE).read()
+    assert split_in_smem(1, size, size, c) == on_chip
+    src = source()
     body = src[src.index("long long workspace_bytes("):]
     assert ("return split_in_smem(b, h, w, c) ? 0 : (long long)b * h * w * c"
             " * 2;") in body
-    assert ("return split::push(k, h, w, c) && split::push(k < 8 ? k : 8, h,"
-            " w, c);") in src
-    # the dispatch's own workspace at batch 1: split's
-    assert rb._workspace_bytes(1, size, size, c, True) == (
-        rb._workspace_bytes(1, size, size, c, True, "split")
-        if rb.variant(BF16, size, size, c, 1) == "split" else
-        rb._workspace_bytes(1, size, size, c, True, "general"))
+    assert "if (b < 1) return 0;" in body
+    # workspace_bytes at batches 1 and 16, by the source's split_in_smem
+    for b, want in ((1, 0 if on_chip else size * size * c * 2), (16, ws16)):
+        assert (0 if split_in_smem(b, size, size, c) else
+                b * size * size * c * 2) == want, b
+    # the launch at batch 1 names split (and asks its workspace) wherever
+    # a sample has two tiles; else general
+    assert rb.variant(BF16, size, size, c, 1) == (
+        "split" if source_split()["tiles"](size, size, c) >= 2 else "general")
 
 
 def test_split_budget_matches_source_tiles():
@@ -365,7 +241,7 @@ def test_split_budget_matches_source_tiles():
     the junk row, rounded to 1 mod 8), the workspace path's window of one
     tap row (band + 2) and staging rows (band) of 8 planes, each beside
     the barriers and the ring."""
-    src = open(SOURCE).read()
+    src = source()
     assert ("return kBarBytes + kStages * kStageBytes +\n"
             "         2 * planes(c) * window_rows(n, w) * 16;") in src
     assert ("return kBarBytes + kStages * kStageBytes +\n"
@@ -374,14 +250,15 @@ def test_split_budget_matches_source_tiles():
     assert "return (used + 7) / 8 * 8 + 1;" in src
     assert "return groups(c) * 8; }" in src
     ring = 128 + 3 * 3 * 64 * 64 * 2
+    S = source_split()
     # 19x19 x 128 at 16 ranks: bands of 48, 90 rows -> 97, 16 planes
-    assert rb.split_window_rows(48, 19) == 97
-    assert rb._smem_bytes("split", 19, 19, 128, True) == (
+    assert S["window_rows"](48, 19) == 97
+    assert smem_bytes("split", 1, 19, 19, 128, True) == (
         ring + 2 * 16 * 97 * 16)
     # at 8 samples, 8 ranks: bands of 96 (138 rows -> 145)
-    assert rb._smem_bytes("split", 19, 19, 128, True, 8) == (
+    assert smem_bytes("split", 8, 19, 19, 128, True) == (
         ring + 2 * 16 * 145 * 16)
-    assert rb._SPLIT_WS_SMEM == ring + 8 * (201 + 193) * 16
+    assert S["ws_smem"]() == ring + 8 * (201 + 193) * 16
 
 
 def emulate_split(x, w1, b1, w2, b2, k):
@@ -518,7 +395,7 @@ def test_split_push_map_emulation(b, size, c):
     receives the bytes its ybar expects: its window's rows in the other
     tiles' bands, counted here by intersecting ranges. The kernel's
     copies and expected bytes use the map as emulated."""
-    src = open(SOURCE).read()
+    src = source()
     kernel = src[src.index("kernel(const T* __restrict__ x"):]
     for line in ("const bool push_y = push(ranks, h, w, c);",
                  "rows = push_rows(lane, t, N, w, c, lo);",
@@ -534,7 +411,7 @@ def test_split_push_map_emulation(b, size, c):
     pick = src[src.index("SplitKernel split_kernel(int k"):]
     assert ("split::push(k, h, w, c) ? split::band(k, h, w, c) : "
             "split::kBandMax;") in " ".join(pick.split())
-    for band in rb.SPLIT_BANDS[:-1]:
+    for band in source_bands()[:-1]:
         assert (f"case {band}:\n      return split::kernel<{band // 2}>;"
                 in pick)
     rng = np.random.default_rng(size * 1000 + c)
@@ -543,15 +420,16 @@ def test_split_push_map_emulation(b, size, c):
               for _ in range(2))
     b1, b2 = (rng.integers(-2, 3, c).astype(np.float32) for _ in range(2))
     tx, tw1, tb1, tw2, tb2 = map(torch.from_numpy, (x, w1, b1, w2, b2))
-    k = rb.cluster_size(b, size, size, c)
+    k = source_cluster_size(b, size, size, c)
     got, received = emulate_split(tx, tw1, tb1, tw2, tb2, k)
     bf = torch.bfloat16
     want = rb.fused_resblock_reference(tx[None].to(bf), tw1.to(bf), tb1,
                                        tw2.to(bf), tb2)[0].float()
     assert torch.equal(got, want)
+    S = source_split()
     if received is not None:
-        n = rb.split_band(k, size, size, c)
-        nt, ng = rb.split_tiles(size, size, c, n), -(-c // 64)
+        n = S["band"](k, size, size, c)
+        nt, ng = S["tiles"](size, size, c, n), -(-c // 64)
         span = n + 2 * (size + 2)      # a window's rows of positions
         want = [8 * 16 * sum(
             len(set(range(t // ng * n, t // ng * n + n))
@@ -560,7 +438,7 @@ def test_split_push_map_emulation(b, size, c):
             for t in range(nt) if t != u) for u in range(nt)]
         assert received == want
     else:
-        assert not rb.split_push(k, size, size, c)
+        assert not S["push"](k, size, size, c)
 
 
 @pytest.mark.parametrize("size,c", [(15, 64), (19, 128), (15, 256)])
